@@ -3,22 +3,33 @@
 
     python3 chip_smoke.py
 
-1. Builds the four CUDA kernels from `src/repro_torch/kernels/csrc` (one nvcc
+1. Builds the five CUDA kernels from `src/repro_torch/kernels/csrc` (one nvcc
    per source, all at once) and prints nvcc's `-Xptxas -v` report.
 2. For each kernel, at the main path's shapes (the mimic widths of the
-   paper's Table 3): makes inputs on the card from a fixed seed, launches the
-   kernel, holds it against its plain PyTorch version
+   paper's Table 3; replay_correction at r = 1, 3 and 64 changed slots, a
+   third of them padded): makes inputs on the card from a fixed seed,
+   launches the kernel, holds it against its plain PyTorch version
    (max|kernel - plain| <= 1e-4 * max|plain| + 1e-6), checks that it repeats
-   bit for bit, and times both with CUDA events. Then checks that `sgd_train`
-   on the kernels repeats bit for bit.
-3. Drives the main path: `run_chef(method="infl", selector="increm",
-   constructor="retrain")` on a mimic-shaped dataset made on the card,
-   3 rounds of 10 labels, Table 4's lr, l2 and epochs, on backend `cuda`
-   (launch counts set to 0 just before, read just after) and on backend
-   `reference`. Both runs must select the same rows each round, or differ
-   only at a priority tie, and end within 0.005 F1.
-4. Prints the kernels line, the card's name and power limit, and last
-   `{"ok": true, "device": {...}}`.
+   bit for bit, and times both with CUDA events. Then checks that
+   `sgd_train` and `deltagrad_replay` on the kernels repeat bit for bit.
+3. Drives the main path, `run_chef(method="infl", selector="increm")` on a
+   mimic-shaped dataset made on the card, 3 rounds of 10 labels, Table 4's
+   lr, l2 and epochs: first with constructor "retrain", then with the
+   default, DeltaGrad-L. Each runs on backend `cuda` (launch counts set to 0
+   just before, read just after) and on backend `reference`. Both backends
+   must select the same rows each round, or differ only at a priority tie,
+   and end within 0.005 F1. The DeltaGrad-L run on `cuda` must launch
+   minibatch_grad and replay_correction exactly as often as its schedule
+   predicts.
+4. Checkpoint: a DeltaGrad-L session on `cuda` runs 2 rounds, saving after
+   each; a fresh session restored from round 1 runs round 2 again and must
+   end bit for bit where the uninterrupted one did (same rows, same w, same
+   trajectory).
+5. Trace: the first 600 steps of a DeltaGrad-L replay on `cuda`, timed on
+   the host, run under sync-debug mode, and profiled (device busy time,
+   idle share, blocking runtime calls, the costliest host ops).
+6. Prints the kernels line (launches from the DeltaGrad-L run on `cuda`),
+   the card's name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero. Needs a CUDA device; imports nothing of JAX or of
 the JAX package.
@@ -29,6 +40,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -44,11 +56,16 @@ F1_TOL = 0.005  # final test F1, cuda run vs reference run
 N, D, C, BS, N_VAL = 78_487, 2049, 2, 2000, 579  # mimic: Table 3 sizes, D = 2048 + 1
 SEED = 0
 CSRC = "src/repro_torch/kernels/csrc"
+ROUNDS, B = 3, 10  # cleaning rounds of the main path, labels a round
+CORR_R = (1, 3, 64)  # changed slots of a replay step in the kernel phase
+LINE_R = 3  # the r reported in the kernels line: a mimic replay step changes 1-3 rows
+TRACE_STEPS = 600  # replay steps the trace phase profiles (59 of them explicit)
 REPLACES = {
     "lr_grad": "src/repro/kernels/lr_grad.py:36",
     "lr_hvp": "src/repro/kernels/lr_hvp.py:39",
     "minibatch_grad": "src/repro/kernels/minibatch_grad.py:51",
     "infl_scores": "src/repro/kernels/infl_scores.py:37",
+    "replay_correction": "src/repro/kernels/replay_correction.py:47",
 }
 
 
@@ -136,7 +153,8 @@ def build_phase() -> None:
 
 def kernel_phase(torch, card_line: str) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
-    from repro_torch.kernels import LAUNCHES, infl_scores, lr_grad, lr_hvp, minibatch_grad
+    from repro_torch.kernels import (LAUNCHES, infl_scores, lr_grad, lr_hvp, minibatch_grad,
+                                     replay_correction)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -160,6 +178,19 @@ def kernel_phase(torch, card_line: str) -> dict:
 
     ones_val = torch.ones(N_VAL, device=dev)
     f = 4.0  # bytes per float32
+    # a replay step's correction: r slots, the last third padded (ci = 0,
+    # cm = 0); Y_new / gw_new are the labels and weights after cleaning
+    Y_new = torch.nn.functional.one_hot(torch.randint(0, C, (N,), generator=g, device=dev),
+                                        C).float()
+    gw_new = torch.ones(N, device=dev)
+    corr = {}
+    for r in CORR_R:
+        real = r - r // 3
+        ci = torch.zeros(r, dtype=torch.int64, device=dev)
+        ci[:real] = torch.randperm(N, generator=g, device=dev)[:real]
+        cm = torch.zeros(r, device=dev)
+        cm[:real] = 1.0
+        corr[r] = (ci, cm, real)
     cases = {
         # name: (kernel, plain, shape, bytes it must move, operations)
         "lr_grad": (lambda: lr_grad.lr_grad(w, Xa_val, Y_val, ones_val, 0.0),
@@ -178,6 +209,16 @@ def kernel_phase(torch, card_line: str) -> dict:
                         lambda: infl_scores.infl_scores_plain(v, Xa, P, Y, 0.8),
                         [N, D, C], f * (N * D + 3 * N * C + C * D), 2.0 * N * C * D + 6.0 * N * C),
     }
+    for r, (ci, cm, real) in corr.items():
+        args = (w, Xa, Y, Y_new, gw, gw_new, ci, cm, BS)
+        cases[f"replay_correction/r={r}"] = (
+            lambda args=args: replay_correction.replay_correction(*args),
+            lambda args=args: replay_correction.replay_correction_plain(*args),
+            # bytes: the real rows once, their labels and weights, every
+            # slot's id and mask, w in, the result out; the padded slots add
+            # nothing, so their rows are not counted
+            [N, D, C, r, real], f * (real * D + 2 * real * C + 2 * real + 2 * C * D)
+            + 12.0 * r, 4.0 * real * C * D)
     results = {}
     for name, (kern, plain, shape, nbytes, ops) in cases.items():
         batch[0] = 0  # kernel and plain version see the same batch
@@ -201,14 +242,18 @@ def kernel_phase(torch, card_line: str) -> dict:
                              bound_by=bound_by, library_ms=None)
         emit({"phase": "kernel", "name": name, "shape": shape, "max_abs_err": err,
               "tolerance": f"max|kernel-plain| <= {TOL_REL}*max|plain| + {TOL_ABS} = {limit}",
-              "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "library_ms": None, "card": card_line, "launches": dict(LAUNCHES)})
+              "bitwise_repeat": True, "kernel_ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "card": card_line,
+              "launches": dict(LAUNCHES)})
+    results["replay_correction"] = results[f"replay_correction/r={LINE_R}"]
     return results
 
 
 def determinism_phase(torch) -> None:
-    """sgd_train on the kernels, twice from the same start: equal bit for bit."""
-    from repro_torch.core import lr_head
+    """sgd_train on the kernels, twice from the same start, then
+    deltagrad_replay of its trajectory, twice: each pair equal bit for
+    bit."""
+    from repro_torch.core import deltagrad, lr_head
     from repro_torch.core.backend import Backend
 
     dev = torch.device("cuda")
@@ -222,16 +267,27 @@ def determinism_phase(torch) -> None:
     (w1, (ws1, gs1)), (w2, (ws2, gs2)) = runs
     if not (torch.equal(w1, w2) and torch.equal(ws1, ws2) and torch.equal(gs1, gs2)):
         fail("sgd_train on the cuda backend does not repeat bit for bit")
-    emit({"phase": "determinism", "sgd_steps": int(sched.shape[0]), "bitwise_equal": True})
+    # clean 3 rows of every batch of the first epoch: each step corrects
+    changed = sched[: sched.shape[0] // 2, :3].reshape(-1)
+    Y_new = Y.clone()
+    Y_new[changed] = torch.nn.functional.one_hot(changed % C, C).float()
+    gw_new = gw.clone()
+    gw_new[changed] = 1.0
+    ci, cm = deltagrad.build_correction_schedule(sched.cpu().numpy(), changed.cpu().numpy())
+    replays = [deltagrad.deltagrad_replay(ws1, gs1, sched, Xa, Y, Y_new, gw, gw_new, ci, cm,
+                                          deltagrad.DGConfig(lr=0.0005, l2=0.05), BS,
+                                          backend=Backend("cuda")) for _ in range(2)]
+    (r1, (rws1, rgs1)), (r2, (rws2, rgs2)) = replays
+    if not (torch.equal(r1, r2) and torch.equal(rws1, rws2) and torch.equal(rgs1, rgs2)):
+        fail("deltagrad_replay on the cuda backend does not repeat bit for bit")
+    emit({"phase": "determinism", "sgd_steps": int(sched.shape[0]), "replay_steps":
+          int(sched.shape[0]), "replay_r_max": int(ci.shape[1]), "bitwise_equal": True})
 
 
-def main_path(torch, card_line: str) -> dict:
-    """run_chef on the mimic shape, backend cuda then reference."""
-    from repro_torch.cleaning import phases
+def dataset_phase(torch):
+    """The mimic-shaped dataset on the card and the main path's config."""
     from repro_torch.configs import ChefConfig, paper_dataset_specs
-    from repro_torch.core import run_chef
     from repro_torch.data import make_paper_dataset
-    from repro_torch.kernels import LAUNCHES, reset_launches
 
     spec = paper_dataset_specs()["mimic"]
     t0 = time.perf_counter()
@@ -241,8 +297,28 @@ def main_path(torch, card_line: str) -> dict:
           "n_test": ds.X_test.shape[0], "feature_dim": ds.X.shape[1],
           "seconds": time.perf_counter() - t0})
     cfg = ChefConfig(n_classes=spec.n_classes, feature_dim=spec.feature_dim, lr=spec.lr,
-                     l2=spec.l2, n_epochs=spec.n_epochs, batch_size=BS, budget=30, round_size=10,
-                     strategy="three", backend="cuda")
+                     l2=spec.l2, n_epochs=spec.n_epochs, batch_size=BS, budget=ROUNDS * B,
+                     round_size=B, strategy="three", backend="cuda")
+    return ds, cfg
+
+
+def predicted_launches(ds, cfg) -> dict:
+    """minibatch_grad and replay_correction launches of a DeltaGrad-L run:
+    the initial training takes T steps; each round's replay corrects all T
+    steps and recomputes the batch gradient at the explicit ones (the first
+    burn_in steps and every period-th after)."""
+    T = max(ds.n // cfg.batch_size, 1) * cfg.n_epochs
+    explicit = sum(1 for t in range(T) if t < cfg.dg_burn_in
+                   or (t - cfg.dg_burn_in) % cfg.dg_period == 0)
+    return {"minibatch_grad": T + ROUNDS * explicit, "replay_correction": ROUNDS * T}
+
+
+def loop_phase(torch, card_line: str, ds, cfg, constructor: str) -> dict:
+    """run_chef(method="infl", selector="increm", constructor) on the mimic
+    shape, backend cuda then reference. Returns the cuda run's launches."""
+    from repro_torch.cleaning import phases
+    from repro_torch.core import run_chef
+    from repro_torch.kernels import LAUNCHES, reset_launches
 
     # each round's selection, read off the selector as it returns it
     selections: list = []
@@ -261,55 +337,164 @@ def main_path(torch, card_line: str) -> dict:
             reset_launches()
         t0 = time.perf_counter()
         res = run_chef(ds, replace(cfg, backend=name), method="infl", selector="increm",
-                       constructor="retrain")
+                       constructor=constructor)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
         runs[name] = (res, list(selections), launches)
         for r in res.history:
-            emit({"phase": "round", "backend": name, "round": r.round,
-                  "n_cleaned": r.n_cleaned_total, "n_candidates": r.n_candidates,
-                  "f1_val": r.f1_val, "f1_test": r.f1_test, "t_select_s": r.t_select,
-                  "t_update_s": r.t_update, "card": card_line})
-        emit({"phase": "run_chef", "backend": name, "rounds": len(res.history),
-              "wall_s": wall, "f1_test_final": res.f1_test_final,
-              "f1_val_final": res.f1_val_final, "launches": launches if name == "cuda" else None,
-              "card": card_line})
+            emit({"phase": "round", "constructor": constructor, "backend": name,
+                  "round": r.round, "n_cleaned": r.n_cleaned_total,
+                  "n_candidates": r.n_candidates, "f1_val": r.f1_val, "f1_test": r.f1_test,
+                  "t_select_s": r.t_select, "t_update_s": r.t_update, "card": card_line})
+        emit({"phase": "run_chef", "constructor": constructor, "backend": name,
+              "rounds": len(res.history), "wall_s": wall, "f1_test_final": res.f1_test_final,
+              "f1_val_final": res.f1_val_final,
+              "launches": launches if name == "cuda" else None, "card": card_line})
     phases.InflSelector.select = select
 
     res_c, sel_c, launches = runs["cuda"]
     res_r, sel_r, _ = runs["reference"]
     for name, res in runs.items():
-        if len(res[0].history) != 3 or not bool(torch.isfinite(res[0].w).all()):
-            fail(f"{name} run: {len(res[0].history)} rounds, finite w: "
+        if len(res[0].history) != ROUNDS or not bool(torch.isfinite(res[0].w).all()):
+            fail(f"{constructor} {name} run: {len(res[0].history)} rounds, finite w: "
                  f"{bool(torch.isfinite(res[0].w).all())}")
-        if res[0].w.shape != (C, D) or int(res[0].dataset.cleaned.sum()) != 30:
-            fail(f"{name} run: w {tuple(res[0].w.shape)}, "
+        if res[0].w.shape != (C, D) or int(res[0].dataset.cleaned.sum()) != ROUNDS * B:
+            fail(f"{constructor} {name} run: w {tuple(res[0].w.shape)}, "
                  f"{int(res[0].dataset.cleaned.sum())} cleaned")
-    missing = [k for k, n in launches.items() if n == 0]
+    path = [k for k in REPLACES if k != "replay_correction" or constructor == "deltagrad"]
+    missing = [k for k in path if launches[k] == 0]
     if missing:
-        fail(f"the cuda run launched no {missing}")
+        fail(f"the {constructor} cuda run launched no {missing}")
+    if constructor == "deltagrad":
+        want = predicted_launches(ds, cfg)
+        got = {k: launches[k] for k in want}
+        emit({"phase": "launch_prediction", "constructor": constructor, "predicted": want,
+              "launched": got})
+        if got != want:
+            fail(f"the deltagrad cuda run launched {got}, its schedule predicts {want}")
     compared = 0
     for k, (a, b) in enumerate(zip(sel_c, sel_r)):
         ia, ib = set(a.idx.tolist()), set(b.idx.tolist())
         if ia != ib:
             ties = all(any(_near_bth(s, j) for s in (a, b)) for j in ia ^ ib)
-            emit({"phase": "compare", "round": k, "same_selection": False,
-                  "only_cuda": sorted(ia - ib), "only_reference": sorted(ib - ia),
-                  "priority_tie": ties, "tie_tolerance": TIE_REL})
+            emit({"phase": "compare", "constructor": constructor, "round": k,
+                  "same_selection": False, "only_cuda": sorted(ia - ib),
+                  "only_reference": sorted(ib - ia), "priority_tie": ties,
+                  "tie_tolerance": TIE_REL})
             if not ties:
-                fail(f"round {k}: the runs select different rows and it is no priority tie")
+                fail(f"{constructor} round {k}: the runs select different rows and it is no "
+                     "priority tie")
             break  # the runs' label states part here
         compared += 1
     df1 = abs(res_c.f1_test_final - res_r.f1_test_final)
-    emit({"phase": "compare", "rounds_same_selection": compared,
+    emit({"phase": "compare", "constructor": constructor, "rounds_same_selection": compared,
           "n_candidates_cuda": [r.n_candidates for r in res_c.history],
           "n_candidates_reference": [r.n_candidates for r in res_r.history],
           "f1_test_cuda": res_c.f1_test_final, "f1_test_reference": res_r.f1_test_final,
           "f1_diff": df1, "f1_tol": F1_TOL})
     if df1 > F1_TOL:
-        fail(f"final test F1 differs by {df1} > {F1_TOL}")
+        fail(f"{constructor}: final test F1 differs by {df1} > {F1_TOL}")
     return launches
+
+
+def checkpoint_phase(torch, ds, cfg) -> None:
+    """A DeltaGrad-L session on the kernels runs 2 rounds, checkpointing
+    after each; a fresh session restored from round 1 runs round 2 and must
+    end bit for bit where the uninterrupted one did."""
+    from repro_torch.cleaning import CleaningSession, make_scheduler
+
+    with tempfile.TemporaryDirectory(prefix="chef_ckpt_") as ckpt_dir:
+        full = make_scheduler(CleaningSession.initialize(ds, cfg), ckpt_dir=ckpt_dir)
+        res_full = full.run(max_rounds=2)
+        t0 = time.perf_counter()
+        session = CleaningSession.restore(ckpt_dir, ds, cfg, step=1)
+        t_restore = time.perf_counter() - t0
+        res = make_scheduler(session).run(max_rounds=1)
+        torch.cuda.synchronize()
+        ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*") if f.is_file())
+    same = {
+        "rows": torch.equal(res.dataset.cleaned, res_full.dataset.cleaned),
+        "labels": torch.equal(res.dataset.y_prob, res_full.dataset.y_prob),
+        "w": torch.equal(res.w, res_full.w),
+        "trajectory": all(map(torch.equal, session.traj, full.session.traj)),
+        "f1": [r.f1_test for r in res.history] == [r.f1_test for r in res_full.history],
+    }
+    emit({"phase": "checkpoint", "rounds": len(res.history), "restored_round": 1,
+          "restore_s": t_restore, "checkpoint_bytes": ckpt_bytes, "bitwise_equal": same})
+    if len(res.history) != 2 or not all(same.values()):
+        fail(f"the restored session does not repeat the uninterrupted one: {same}")
+
+
+def trace_phase(torch, card_line: str, ds, cfg) -> None:
+    """Where a DeltaGrad-L replay step's time goes on the card: the first
+    TRACE_STEPS steps of a mimic replay (10 rows cleaned), once untraced
+    (host clock) and once under sync-debug mode (every synchronizing PyTorch
+    call warns), then once under torch.profiler: the union of the kernels'
+    device intervals against the host wall (the device's idle share), the
+    CUDA runtime calls that block the host, and the host ops that cost the
+    most."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import deltagrad, lr_head
+    from repro_torch.core.backend import Backend
+    from repro_torch.core.pipeline import train_head
+
+    bk = Backend("cuda")
+    _, (ws, gs), sched = train_head(ds, cfg, cache=True, backend=bk)
+    idx = sched[0, :B]
+    Xa = lr_head.augment(ds.X)
+    ds_new = ds.clean(idx, ds.y_true[idx])
+    ci, cm = deltagrad.build_correction_schedule(sched.cpu().numpy(), idx.cpu().numpy())
+    n = TRACE_STEPS
+    dgc = deltagrad.DGConfig(cfg.dg_burn_in, cfg.dg_period, cfg.dg_history, cfg.lr, cfg.l2)
+
+    def replay():
+        return deltagrad.deltagrad_replay(ws[:n], gs[:n], sched[:n], Xa, ds.y_prob, ds_new.y_prob,
+                                          ds.y_weight, ds_new.y_weight, ci[:n], cm[:n], dgc, BS,
+                                          backend=bk)
+
+    replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay()
+    torch.cuda.synchronize()
+    wall_untraced = time.perf_counter() - t0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync_warnings = sorted({str(w.message).splitlines()[0] for w in caught})
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # union of the device intervals, in us
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    blocking = {e.key: e.count for e in host
+                if "Synchronize" in e.key or e.key in ("cudaMemcpy", "cudaStreamWaitEvent")}
+    top = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    emit({"phase": "trace", "what": "deltagrad_replay, backend cuda, mimic widths",
+          "steps": n, "host_us_per_step_untraced": wall_untraced / n * 1e6,
+          "host_us_per_step_traced": wall / n * 1e6,
+          "device_busy_us_per_step": busy / n, "device_kernels": len(spans),
+          "device_idle_share": 1.0 - busy / (wall * 1e6),
+          "sync_debug_warnings": sync_warnings, "blocking_runtime_calls": blocking,
+          "top_host_ops_self_us_per_step": [
+              [e.key, e.count / n, e.self_cpu_time_total / n] for e in top],
+          "card": card_line})
 
 
 def _near_bth(sel, j: int) -> bool:
@@ -333,7 +518,11 @@ def main() -> None:
     build_phase()
     kern = kernel_phase(torch, card_line)
     determinism_phase(torch)
-    launches = main_path(torch, card_line)
+    ds, cfg = dataset_phase(torch)
+    loop_phase(torch, card_line, ds, cfg, "retrain")
+    launches = loop_phase(torch, card_line, ds, cfg, "deltagrad")
+    checkpoint_phase(torch, ds, cfg)
+    trace_phase(torch, card_line, ds, cfg)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
          "replaces": REPLACES[name], "launches": launches[name], **kern[name]}

@@ -6,10 +6,11 @@ run on the card unless the caller passes `device="cpu"`.
 
   configs   ChefConfig, dataset specs (own copy)
   kernels   hand-written CUDA kernels (sm_90a) with their plain versions
-  core      Backend, lr_head, cg, influence, increm, annotation, metrics,
-            pipeline (run_chef, train_head)
+  core      Backend, lr_head, cg, influence, increm, deltagrad, baselines,
+            annotation, metrics, pipeline (run_chef, train_head)
   data      synthetic weak-label datasets
   cleaning  CleaningSession, phases, the blocking RoundScheduler
+  ckpt      atomic, async checkpoints in the JAX package's layout
   convert   numpy state from the JAX package -> the port's objects
 
 Float32 matrix products run in full float32: TF32 keeps about three decimal

@@ -2,19 +2,23 @@
 blocking scheduler (module for module with `repro.cleaning`).
 
   session    — `CleaningSession`: round counter, budget ledger, label state,
-               Increm-INFL provenance, per-round generators.
-  phases     — `InflSelector`, `SimulatedAnnotator`, `RetrainConstructor`.
-  scheduler  — the blocking `RoundScheduler` and the early-termination
-               policies.
+               DeltaGrad trajectory, Increm-INFL provenance, per-round
+               generators; checkpoint save/restore.
+  phases     — `InflSelector`, `BaselineSelector`, `SimulatedAnnotator`,
+               `DeltaGradConstructor`, `RetrainConstructor`.
+  scheduler  — the blocking `RoundScheduler` (with checkpoint hooks) and the
+               early-termination policies.
 
-The service, the supervisor, pipelined speculation and checkpointing wait
-until they are ported (ROADMAP.md).
+The service, the supervisor and pipelined speculation wait until they are
+ported (ROADMAP.md).
 """
 from repro_torch.cleaning.phases import (
     AnnotationTask,
     Annotator,
+    BaselineSelector,
     Constructor,
     ConstructorResult,
+    DeltaGradConstructor,
     InflSelector,
     RetrainConstructor,
     RoundSelection,
@@ -35,9 +39,9 @@ from repro_torch.cleaning.scheduler import (
 from repro_torch.cleaning.session import BudgetLedger, CleaningSession, round_generators
 
 __all__ = [
-    "AnnotationTask", "Annotator", "BudgetLedger", "CleaningSession", "Constructor",
-    "ConstructorResult", "InflSelector", "MarginalF1PerLabel", "Patience", "RetrainConstructor",
-    "RoundScheduler", "RoundSelection", "Selector", "SimulatedAnnotator", "TargetF1",
-    "TerminationPolicy", "make_constructor", "make_scheduler", "make_selector",
-    "make_termination", "round_generators",
+    "AnnotationTask", "Annotator", "BaselineSelector", "BudgetLedger", "CleaningSession",
+    "Constructor", "ConstructorResult", "DeltaGradConstructor", "InflSelector",
+    "MarginalF1PerLabel", "Patience", "RetrainConstructor", "RoundScheduler", "RoundSelection",
+    "Selector", "SimulatedAnnotator", "TargetF1", "TerminationPolicy", "make_constructor",
+    "make_scheduler", "make_selector", "make_termination", "round_generators",
 ]

@@ -4,9 +4,15 @@ Each round runs select -> annotate -> construct, then commits:
 
     t_round = t_select + latency + t_update
 
-The JAX package's pipelined speculation (overlapping the annotation latency
-with a speculative update and the next round's scoring), its heartbeat and
-its checkpoint hooks are not ported yet (ROADMAP.md).
+With `ckpt_dir` the session checkpoints every `ckpt_every` committed rounds
+through `repro_torch.ckpt.CheckpointManager` (async writes overlap the next
+round), so a killed job resumes bit for bit (`CleaningSession.restore`).
+
+Not ported yet (ROADMAP.md): the JAX package's pipelined speculation
+(overlapping the annotation latency with a speculative update and the next
+round's scoring) — `make_scheduler(pipelined=True)` refuses it — and its
+`Heartbeat` and `retry_step` hooks, which wait for the port of
+`dist/fault.py`.
 
 Early termination is first-class: `TargetF1`, `Patience`, and
 `MarginalF1PerLabel` policy objects (composable; any firing stops the run).
@@ -111,6 +117,7 @@ class RoundScheduler:
 
     def __init__(self, session: CleaningSession, selector: Selector, annotator: Annotator,
                  constructor: Constructor, *, termination: Sequence[TerminationPolicy] = (),
+                 ckpt_dir=None, ckpt_every: int = 1, ckpt_keep: int = 3,
                  verbose: bool = False):
         self.session = session
         self.selector = selector
@@ -118,6 +125,12 @@ class RoundScheduler:
         self.constructor = constructor
         self.termination = tuple(termination)
         self.verbose = verbose
+        self.ckpt = None
+        self.ckpt_every = ckpt_every
+        if ckpt_dir is not None:
+            from repro_torch.ckpt import CheckpointManager
+
+            self.ckpt = CheckpointManager(ckpt_dir, keep=ckpt_keep)
 
     @property
     def exhausted(self) -> bool:
@@ -131,6 +144,8 @@ class RoundScheduler:
         while not self.exhausted and (max_rounds is None or done < max_rounds):
             self.step()
             done += 1
+        if self.ckpt is not None:
+            self.ckpt.wait()
         return self.result()
 
     def result(self) -> ChefResult:
@@ -169,8 +184,9 @@ class RoundScheduler:
         """Apply one computed round: the only state-mutation point."""
         s = self.session
         selection, result = o.selection, o.result
-        match = float(torch.mean((selection.suggested[selection.idx]
-                                  == s.ds.y_true[selection.idx]).to(torch.float32)))
+        match = (float(torch.mean((selection.suggested[selection.idx]
+                                   == s.ds.y_true[selection.idx]).to(torch.float32)))
+                 if selection.suggested is not None else float("nan"))
         f1v, f1t = _evaluate(result.w, result.ds)
         record = RoundRecord(o.round, int(result.ds.cleaned.sum()), f1v, f1t,
                              selection.n_candidates, o.t_select, o.t_update, match)
@@ -181,12 +197,18 @@ class RoundScheduler:
             print(f"round {o.round}: cleaned={record.n_cleaned_total} f1_val={f1v:.4f} "
                   f"f1_test={f1t:.4f} cand={record.n_candidates} "
                   f"sel={o.t_select:.3f}s upd={o.t_update:.3f}s")
+        if self.ckpt is not None and self.ckpt_every and s.round % self.ckpt_every == 0:
+            s.save(self.ckpt)
         return record
 
 
 def make_scheduler(session: CleaningSession, *, method: str = "infl", selector: str = "increm",
-                   constructor: str = "retrain", **kw) -> RoundScheduler:
-    """`run_chef`-vocabulary convenience constructor."""
+                   constructor: str = "deltagrad", pipelined: bool = False,
+                   **kw) -> RoundScheduler:
+    """`run_chef`-vocabulary convenience constructor. `kw` goes to
+    `RoundScheduler` (ckpt_dir, ckpt_every, ckpt_keep, verbose)."""
+    if pipelined:
+        raise NotImplementedError("pipelined speculation is not ported yet; use pipelined=False")
     cfg = session.cfg
     return RoundScheduler(session, make_selector(method, selector),
                           SimulatedAnnotator(cfg.strategy, cfg.annotator_latency_s),

@@ -1,6 +1,7 @@
 """Carry state across from the JAX package: numpy arrays in, the port's
 objects out, on a given device. Imports nothing of `repro`; the caller
-turns the JAX package's arrays into numpy (`np.asarray`)."""
+turns the JAX package's arrays into numpy (`np.asarray`), or reads them from
+a checkpoint the JAX package wrote (`repro_torch.ckpt`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -43,3 +44,48 @@ def provenance_from_numpy(w0, p0, hnorm, device="cpu") -> Provenance:
 def schedule_from_numpy(sched, device="cpu") -> torch.Tensor:
     """A batch schedule [T, bs] as int64 row ids."""
     return _i64(sched, device)
+
+
+def trajectory_from_numpy(ws, gs, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """A DeltaGrad trajectory (ws, gs), each [T, C, d+1], as float32."""
+    return _f32(ws, device), _f32(gs, device)
+
+
+def seed_from_key_slot(key) -> int:
+    """The port's int seed from a session checkpoint's key slot: the port
+    stores its seed there as a scalar; the JAX package stores
+    `jax.random.key_data` of its key, two uint32 words [hi, lo] that for a
+    key made by `jax.random.key(seed)` are the seed's high and low halves."""
+    a = np.asarray(key)
+    if a.shape == (2,):
+        return (int(a[0]) << 32) | int(a[1])
+    return int(a)
+
+
+# the leaves of a session's state_tree(), as both packages write them:
+# name -> dtype of the port's tensor (None: kept as numpy)
+SESSION_STATE = {
+    "w": torch.float32, "sched": torch.int64, "traj_ws": torch.float32,
+    "traj_gs": torch.float32, "prov_w0": torch.float32, "prov_p0": torch.float32,
+    "prov_hnorm": torch.float32, "y_prob": torch.float32, "y_weight": torch.float32,
+    "cleaned": torch.bool, "has_traj": None, "has_prov": None, "key": None, "round": None,
+    "spent": None, "terminated": None, "history": None,
+}
+
+
+def state_from_numpy(state: dict, device="cpu") -> dict:
+    """A session's `state_tree()` with numpy leaves (the port's or the JAX
+    package's, as `restore_checkpoint` reads them) -> the same dict with the
+    tensor leaves as the port's tensors on `device`, the key slot as the
+    port's int seed (`seed_from_key_slot`) and the counters and history as
+    numpy."""
+    out = {}
+    for name, dtype in SESSION_STATE.items():
+        a = state[name]
+        if name == "key":
+            out[name] = seed_from_key_slot(a)
+        elif dtype is None:
+            out[name] = np.asarray(a)
+        else:
+            out[name] = torch.as_tensor(np.array(a), device=device).to(dtype)
+    return out

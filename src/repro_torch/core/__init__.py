@@ -2,9 +2,11 @@
 
   backend    — Backend dispatch (reference | cuda)
   lr_head    — the strongly-convex LR head (closed-form grad/HVP/loss, SGD)
-  influence  — INFL (Eq. 6)
+  influence  — INFL (Eq. 6), INFL-D (Eq. 2), INFL-Y (Eq. 7)
   cg         — conjugate-gradient H⁻¹g
   increm     — Increm-INFL (Theorem 1 bounds + Algorithm 1 pruning)
+  deltagrad  — DeltaGrad-L replay (Algorithm 2)
+  baselines  — the Exp1 sample-selector baselines
   annotation — simulated annotators, majority vote, INFL-as-annotator
   metrics    — F1 and accuracy
   pipeline   — `run_chef` and `train_head`

@@ -8,6 +8,9 @@ explicit override) and passed down, carries the loop's ops:
   infl_scores(v, Xa, P, Y, gamma)        -> [N, C]    Eq. 6 score matrix
   probs_scores(w, v, Xa, Y, gamma)       -> [N, C]    probs, then Eq. 6
   minibatch_grad(w, Xa, Y, weights, idx, l2) -> [C, d+1]  the sgd_train step
+                                                      and the explicit replay steps
+  replay_correction(w, Xa, Y_old, Y_new, w_old, w_new, corr_idx, corr_mask,
+                    batch_size)          -> [C, d+1]  DeltaGrad-L Eq. 4 correction
   probs(w, Xa)                           -> [N, C]    softmax(Xa wᵀ)
 
   reference  plain PyTorch on any device: the semantic oracle.
@@ -81,6 +84,20 @@ class Backend:
         from repro_torch.kernels.minibatch_grad import minibatch_grad
 
         return minibatch_grad(w, Xa, Y, weights, idx, l2)
+
+    def replay_correction(self, w, Xa, Y_old, Y_new, w_old, w_new, corr_idx, corr_mask,
+                          batch_size: int) -> torch.Tensor:
+        """DeltaGrad-L replay correction over the changed slots of B_t (Eq. 4
+        right term); padded slots (corr_mask == 0) add exactly zero."""
+        if self.name == "reference":
+            from repro_torch.core import deltagrad
+
+            return deltagrad.replay_correction_reference(w, Xa, Y_old, Y_new, w_old, w_new,
+                                                         corr_idx, corr_mask, batch_size)
+        from repro_torch.kernels.replay_correction import replay_correction
+
+        return replay_correction(w, Xa, Y_old, Y_new, w_old, w_new, corr_idx, corr_mask,
+                                 batch_size)
 
     def unsharded(self) -> "Backend":
         """The backend for small side computations (the validation gradient).

@@ -9,7 +9,7 @@ Closed forms for the cross-entropy LR head (see core/lr_head.py):
 Sample priority = min_c I(i,c) (most negative = most harmful = clean first,
 paper Section 4.1.1); the argmin class is the suggested cleaned label. The
 u_i matmul + score epilogue is the `infl_scores` kernel. The baselines INFL-D
-(Eq. 2) and INFL-Y (Eq. 7) are not ported yet (ROADMAP.md).
+(Eq. 2) and INFL-Y (Eq. 7) are plain PyTorch, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.core.cg import inverse_hvp
 from repro_torch.kernels.infl_scores import infl_scores_plain as infl_scores_reference
 
 __all__ = ["InflResult", "influence_vector", "infl_scores_reference", "infl_scores", "infl",
-           "top_b"]
+           "infl_d", "infl_y", "top_b"]
 
 
 class InflResult(NamedTuple):
@@ -57,6 +57,22 @@ def infl(w, v, Xa, Y, gamma: float, P: Optional[torch.Tensor] = None,
         S = backend.probs_scores(w, v, Xa, Y, gamma)
     else:
         S = infl_scores(v, Xa, P, Y, gamma, backend=backend)
+    return InflResult(torch.amin(S, dim=-1), torch.argmin(S, dim=-1), S)
+
+
+def infl_d(w, v, Xa, Y, P: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. 2 (Koh & Liang deletion influence): priority only, no labels."""
+    if P is None:
+        P = lr_head.probs(w, Xa)
+    U = Xa @ v.T
+    return torch.sum((P - Y) * U, dim=-1)
+
+
+def infl_y(w, v, Xa, Y) -> InflResult:
+    """Eq. 7 ([41]'s label-perturbation influence; no δ_y magnitude, no
+    re-weighting term)."""
+    U = Xa @ v.T
+    S = torch.sum(Y * U, dim=-1, keepdim=True) - U
     return InflResult(torch.amin(S, dim=-1), torch.argmin(S, dim=-1), S)
 
 

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.backend import Backend, get_backend
+from repro_torch.kernels.common import check_row_ids
 from repro_torch.kernels.lr_grad import lr_grad_plain as grad_reference
 from repro_torch.kernels.lr_hvp import lr_hvp_plain as hvp_reference
 from repro_torch.kernels.minibatch_grad import minibatch_grad_plain as minibatch_grad_reference
@@ -132,9 +133,7 @@ def sgd_train(w0, Xa, Y, weights, idx_schedule, *, l2: float, lr: float,
     Every step's gathered mini-batch gradient dispatches through the
     backend; the kernel sums in a fixed order, so a run repeats bit for bit."""
     bk = get_backend(backend)
-    if idx_schedule.numel() and not (0 <= int(idx_schedule.min())
-                                     and int(idx_schedule.max()) < Xa.shape[0]):
-        raise ValueError(f"batch schedule indexes outside the {Xa.shape[0]} rows")
+    check_row_ids(idx_schedule, Xa.shape[0], "batch schedule")
     T = idx_schedule.shape[0]
     ws = gs = None
     if cache_trajectory:

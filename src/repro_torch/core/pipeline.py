@@ -7,7 +7,7 @@
     1. sample selector  — INFL, optionally pruned by Increm-INFL
     2. annotation       — simulated human annotators + INFL-as-annotator,
                           majority vote (strategy one/two/three)
-    3. model constructor — full Retrain (DeltaGrad-L is not ported yet)
+    3. model constructor — DeltaGrad-L (or full Retrain)
 
   until the budget B is exhausted or an early-termination policy fires.
 
@@ -75,14 +75,15 @@ def train_head(ds, cfg: ChefConfig, w0=None, cache: bool = True,
 
 
 def run_chef(ds, cfg: ChefConfig, *, method: str = "infl", selector: str = "increm",
-             constructor: str = "retrain", backend: "Backend | str | None" = None,
+             constructor: str = "deltagrad", backend: "Backend | str | None" = None,
              verbose: bool = False, device=None) -> ChefResult:
     """One blocking, single-session CHEF run (the paper's loop) on `device`
     (the card unless `device="cpu"`).
 
-    method: infl (the baselines are not ported yet);
-    selector: full | increm | increm_tight; constructor: retrain (DeltaGrad-L
-    is not ported yet). `backend` defaults to `cfg.backend`."""
+    method: infl | infl_d | infl_y | active_one | active_two | o2u | tars |
+    duti | loss | random; selector: full | increm | increm_tight (increm*
+    only for infl); constructor: deltagrad | retrain. `backend` defaults to
+    `cfg.backend`."""
     from repro_torch.cleaning import CleaningSession, make_scheduler
 
     if selector != "full" and method != "infl":

@@ -1,9 +1,12 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) of the CHEF cleaning loop.
 
-  lr_grad         Eq. 1 batch gradient (validation gradient)
-  lr_hvp          H(w)v, the CG inner loop
-  minibatch_grad  gathered mini-batch gradient, the sgd_train step
-  infl_scores     Eq. 6 score matrix
+  lr_grad            Eq. 1 batch gradient (validation gradient)
+  lr_hvp             H(w)v, the CG inner loop
+  minibatch_grad     gathered mini-batch gradient, the sgd_train step and the
+                     explicit DeltaGrad-L replay steps
+  infl_scores        Eq. 6 score matrix
+  replay_correction  DeltaGrad-L correction over a batch's changed rows, every
+                     replay step
 
 Each module holds the kernel's wrapper, its plain PyTorch version and a note
 on what it replaces and what bounds it. `build` compiles `csrc/` with nvcc;

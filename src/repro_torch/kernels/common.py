@@ -1,4 +1,4 @@
-"""What the four kernel wrappers share: input checks, the launch with its
+"""What the kernel wrappers share: input checks, the launch with its
 error check, and the launch counts.
 
 On a CPU tensor a wrapper computes its kernel's plain PyTorch version. On a
@@ -32,6 +32,14 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def check_row_ids(ids: torch.Tensor, n_rows: int, what: str) -> None:
+    """Raise unless every id lies in [0, n_rows): the kernels read the rows
+    they are given without a bounds check, so callers check a whole schedule
+    once, before its loop (the check waits for the device)."""
+    if ids.numel() and not (0 <= int(ids.min()) and int(ids.max()) < n_rows):
+        raise ValueError(f"{what} indexes outside the {n_rows} rows")
+
+
 def chunk_rows(n_rows: int, d: int, n_sms: int) -> tuple[int, int]:
     """(rows per chunk, chunks) of the column pass: chunks enough that its
     grid of (column tiles x chunks) holds about BLOCKS_PER_SM blocks for each
@@ -50,14 +58,14 @@ def n_sms(device: torch.device) -> int:
 
 def check(kernel: str, n_classes: int, **tensors) -> torch.device:
     """Raise unless every tensor lies on one CUDA device, is contiguous, has
-    the expected shape and dtype (float32, or int64 for `idx`), and the class
-    count is one the kernel was built for. `tensors` maps a name to
-    `(tensor, shape)`. Returns the device."""
+    the expected shape and dtype (int64 for the row ids `idx` and `ci`,
+    float32 for the rest), and the class count is one the kernel was built
+    for. `tensors` maps a name to `(tensor, shape)`. Returns the device."""
     if not 1 <= n_classes <= MAX_CLASSES:
         raise ValueError(f"{kernel}: {n_classes} classes; the kernel takes 1 to {MAX_CLASSES}")
     device = None
     for name, (t, shape) in tensors.items():
-        want = torch.int64 if name == "idx" else torch.float32
+        want = torch.int64 if name in ("idx", "ci") else torch.float32
         if t.device.type != "cuda":
             raise ValueError(f"{kernel}: {name} is on {t.device}, not on a CUDA device")
         if device is not None and t.device != device:

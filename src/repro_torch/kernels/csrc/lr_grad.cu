@@ -8,6 +8,6 @@ extern "C" int chef_lr_grad(const float* w, const float* Xa, const float* Y, con
                             int n, int d, int c, int chunk_rows, float l2, float* R,
                             float* partial, float* out, void* stream) {
   return static_cast<int>(chef::launch_rowcol<chef::kGrad>(
-      Xa, d, nullptr, n, c, chunk_rows, w, nullptr, Y, gw, static_cast<float>(n), l2, w, R,
-      partial, out, static_cast<cudaStream_t>(stream)));
+      Xa, d, nullptr, n, c, chunk_rows, w, nullptr, Y, gw, chef::CorrInputs{},
+      static_cast<float>(n), l2, w, R, partial, out, static_cast<cudaStream_t>(stream)));
 }

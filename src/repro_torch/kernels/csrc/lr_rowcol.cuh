@@ -1,12 +1,13 @@
-// Device code shared by the LR-head reductions: lr_grad, lr_hvp and
-// minibatch_grad. Each computes
+// Device code shared by the LR-head reductions: lr_grad, lr_hvp,
+// minibatch_grad and replay_correction. Each computes
 //
 //     out[c, d] = (1/denom) * sum_i r[i, c] * Xa[src(i), d] + l2 * base[c, d]
 //
 // where r[i] is a per-row residual over the C classes (src(i) = idx[i] for the
-// gathered mini-batch, i otherwise). The TPU kernels carry the [C, D] sum in
-// VMEM across a sequential grid; H100 blocks run in parallel and in no order,
-// so the sum is taken in three passes with no float atomics:
+// gathered rows, i otherwise; replay_correction has no l2 term). The TPU
+// kernels carry the [C, D] sum in VMEM across a sequential grid; H100 blocks
+// run in parallel and in no order, so the sum is taken in three passes with no
+// float atomics:
 //
 //   row_pass   one warp per row: logits z = x.w^T (and u = x.v^T for the HVP)
 //              over D with lane-strided scalar loads (lane k reads columns
@@ -38,7 +39,7 @@ constexpr int kRowWarps = 8;      // rows (one warp each) per row-pass block
 constexpr int kColThreads = 256;  // columns per column-pass block
 constexpr int kMaxClasses = 16;   // kernels/common.py: MAX_CLASSES
 
-enum Residual { kGrad = 0, kHvp = 1 };
+enum Residual { kGrad = 0, kHvp = 1, kCorr = 2 };
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -46,12 +47,24 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Extra inputs of the kCorr residual (nullptr in the other modes): the
+// cleaned labels and weights of every sample, and the mask of the gathered
+// slots (0 on a padded slot).
+struct CorrInputs {
+  const float* Y_new;
+  const float* g_new;
+  const float* mask;
+};
+
 // kGrad: r = (p - y) * g.  kHvp: r = (p*u - p*(p.u)) * g.  p = softmax(x.w^T).
+// kCorr: r = (p - y_new) * (g_new * m) - (p - y) * (g * m), the DeltaGrad-L
+// correction of one changed row (both label branches share one softmax).
 template <int C, int MODE>
 __global__ void __launch_bounds__(kRowWarps * kWarp)
 row_pass(const float* __restrict__ Xa, int D, const int64_t* __restrict__ idx, int n_rows,
          const float* __restrict__ w, const float* __restrict__ v,
-         const float* __restrict__ Y, const float* __restrict__ gw, float* __restrict__ R) {
+         const float* __restrict__ Y, const float* __restrict__ gw, CorrInputs corr,
+         float* __restrict__ R) {
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kRowWarps + threadIdx.x / kWarp;
   if (row >= n_rows) return;
@@ -95,8 +108,16 @@ row_pass(const float* __restrict__ Xa, int D, const int64_t* __restrict__ idx, i
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     if (lane != c) continue;
-    const float r = MODE == kGrad ? (z[c] - Y[src * C + c]) * g
-                                  : (z[c] * u[c] - z[c] * pu) * g;
+    float r;
+    if (MODE == kGrad) {
+      r = (z[c] - Y[src * C + c]) * g;
+    } else if (MODE == kHvp) {
+      r = (z[c] * u[c] - z[c] * pu) * g;
+    } else {
+      const float cm = corr.mask[row];
+      r = (z[c] - corr.Y_new[src * C + c]) * (corr.g_new[src] * cm) -
+          (z[c] - Y[src * C + c]) * (g * cm);
+    }
     R[(int64_t)row * C + c] = r;
   }
 }
@@ -132,35 +153,39 @@ __global__ void chunk_sum(const float* __restrict__ partial, int n_chunks, int C
   if (j >= CD) return;
   float s = 0.f;
   for (int k = 0; k < n_chunks; ++k) s += partial[(int64_t)k * CD + j];
-  out[j] = s / denom + l2 * base[j];
+  out[j] = base ? s / denom + l2 * base[j] : s / denom;
 }
 
 template <int C, int MODE>
 void launch_passes(const float* Xa, int D, const int64_t* idx, int n_rows, int chunk_rows,
-                   const float* w, const float* v, const float* Y, const float* gw, float* R,
-                   float* partial, cudaStream_t st) {
+                   const float* w, const float* v, const float* Y, const float* gw,
+                   CorrInputs corr, float* R, float* partial, cudaStream_t st) {
   const dim3 rgrid((n_rows + kRowWarps - 1) / kRowWarps);
   const dim3 cgrid((D + kColThreads - 1) / kColThreads, (n_rows + chunk_rows - 1) / chunk_rows);
-  row_pass<C, MODE><<<rgrid, kRowWarps * kWarp, 0, st>>>(Xa, D, idx, n_rows, w, v, Y, gw, R);
+  row_pass<C, MODE><<<rgrid, kRowWarps * kWarp, 0, st>>>(Xa, D, idx, n_rows, w, v, Y, gw, corr,
+                                                         R);
   col_pass<C><<<cgrid, kColThreads, 0, st>>>(Xa, D, idx, n_rows, chunk_rows, R, partial);
 }
 
 // All three passes on `st`. Scratch: R [n_rows, C], partial [n_chunks, C, D]
 // with n_chunks = ceil(n_rows / chunk_rows); the wrapper picks chunk_rows
 // from the shapes and the card's SM count (kernels/common.py: chunk_rows).
-// Returns cudaGetLastError() after the last launch.
+// base == nullptr drops the l2 term. Returns cudaGetLastError() after the
+// last launch.
 template <int MODE>
 cudaError_t launch_rowcol(const float* Xa, int D, const int64_t* idx, int n_rows, int C,
                           int chunk_rows, const float* w, const float* v, const float* Y,
-                          const float* gw, float denom, float l2, const float* base, float* R,
-                          float* partial, float* out, cudaStream_t st) {
+                          const float* gw, CorrInputs corr, float denom, float l2,
+                          const float* base, float* R, float* partial, float* out,
+                          cudaStream_t st) {
   if (n_rows < 1 || D < 1 || chunk_rows < 1) return cudaErrorInvalidValue;
   const int n_chunks = (n_rows + chunk_rows - 1) / chunk_rows;
   if (n_chunks > 65535) return cudaErrorInvalidValue;  // grid y limit
   switch (C) {
-#define CHEF_CASE(K)                                                                     \
-  case K:                                                                                \
-    launch_passes<K, MODE>(Xa, D, idx, n_rows, chunk_rows, w, v, Y, gw, R, partial, st); \
+#define CHEF_CASE(K)                                                                      \
+  case K:                                                                                 \
+    launch_passes<K, MODE>(Xa, D, idx, n_rows, chunk_rows, w, v, Y, gw, corr, R, partial, \
+                           st);                                                           \
     break;
     CHEF_CASE(1) CHEF_CASE(2) CHEF_CASE(3) CHEF_CASE(4) CHEF_CASE(5) CHEF_CASE(6)
     CHEF_CASE(7) CHEF_CASE(8) CHEF_CASE(9) CHEF_CASE(10) CHEF_CASE(11) CHEF_CASE(12)

@@ -10,6 +10,6 @@ extern "C" int chef_minibatch_grad(const float* w, const float* Xa, const float*
                                    int chunk_rows, float l2, float* R, float* partial,
                                    float* out, void* stream) {
   return static_cast<int>(chef::launch_rowcol<chef::kGrad>(
-      Xa, d, idx, bs, c, chunk_rows, w, nullptr, Y, gw, static_cast<float>(bs), l2, w, R,
-      partial, out, static_cast<cudaStream_t>(stream)));
+      Xa, d, idx, bs, c, chunk_rows, w, nullptr, Y, gw, chef::CorrInputs{},
+      static_cast<float>(bs), l2, w, R, partial, out, static_cast<cudaStream_t>(stream)));
 }

@@ -1,4 +1,4 @@
-"""The port's four kernel ops against the JAX package, on the CPU.
+"""The port's five kernel ops against the JAX package, on the CPU.
 
 Each kernel module of `repro_torch.kernels` holds a plain PyTorch version of
 its kernel; its wrapper computes that version for CPU tensors. Both are held
@@ -7,6 +7,7 @@ interpret mode) on the same numpy inputs: odd N = 67, D = 33, C in {2, 3};
 float32, rtol 1e-5, atol 1e-6. The kernels themselves run only on the card:
 tests/test_torch_gpu.py holds them against these plain versions there.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ import torch
 
 from repro.core.backend import Backend as JBackend
 from repro_torch.kernels import (LAUNCHES, build, common, infl_scores, lr_grad, lr_hvp,
-                                 minibatch_grad)
+                                 minibatch_grad, replay_correction)
 
 RTOL, ATOL = 1e-5, 1e-6
 N, D, BS = 67, 33, 23
@@ -79,6 +80,38 @@ def test_plain_version_matches_jax(op, C, jax_backend):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(jop(j)), rtol=RTOL, atol=ATOL)
     assert torch.equal(wrapper(t), got)
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("r", [1, 5])
+@pytest.mark.parametrize("C", [2, 3])
+@pytest.mark.parametrize("jax_backend", ["reference", "pallas"])
+def test_replay_correction_plain_matches_jax(r, C, jax_backend):
+    """replay_correction_plain == repro's reference and interpret-mode Pallas
+    correction, with the last slots padded (ci = 0, cm = 0) when r = 5; the
+    wrapper on CPU tensors is the plain version exactly and launches
+    nothing; an all-padded slot list adds exactly zero."""
+    a = _op_data(C, seed=10 + C)
+    rng = np.random.default_rng(r)
+    a["Y_new"] = np.eye(C, dtype=np.float32)[rng.integers(0, C, N)]
+    a["w_new"] = np.ones(N, np.float32)
+    real = min(r, 3)
+    a["ci"] = np.concatenate([rng.choice(N, real, replace=False), np.zeros(r - real)]).astype(
+        np.int64)
+    a["cm"] = np.concatenate([np.ones(real), np.zeros(r - real)]).astype(np.float32)
+    t = {k: torch.from_numpy(x) for k, x in a.items()}
+    args = lambda d: (d["w"], d["Xa"], d["Y"], d["Y_new"], d["gw"], d["w_new"])  # noqa: E731
+    before = dict(LAUNCHES)
+    got = replay_correction.replay_correction_plain(*args(t), t["ci"], t["cm"], BS)
+    jop = jax.jit(JBackend(jax_backend).replay_correction, static_argnums=8)  # one compile
+    want = jop(*args({k: jnp.asarray(x) for k, x in a.items()}), jnp.asarray(a["ci"], jnp.int32),
+               jnp.asarray(a["cm"]), BS)
+    assert got.shape == (C, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert torch.equal(replay_correction.replay_correction(*args(t), t["ci"], t["cm"], BS), got)
+    padded = replay_correction.replay_correction(*args(t), torch.zeros(r, dtype=torch.int64),
+                                                 torch.zeros(r), BS)
+    assert torch.equal(padded, torch.zeros(C, D))
     assert LAUNCHES == before
 
 
