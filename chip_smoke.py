@@ -1,35 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of CHEF (`src/repro_torch`) on one H100.
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one H100: the CHEF
+cleaning loop and the paged serving path.
 
     python3 chip_smoke.py
 
-1. Builds the five CUDA kernels from `src/repro_torch/kernels/csrc` (one nvcc
-   per source, all at once) and prints nvcc's `-Xptxas -v` report.
-2. For each kernel, at the main path's shapes (the mimic widths of the
+1. Builds the seven CUDA kernels from `src/repro_torch/kernels/csrc` (one
+   nvcc per source, all at once) and prints nvcc's `-Xptxas -v` report.
+2. For each CHEF kernel, at the main path's shapes (the mimic widths of the
    paper's Table 3; replay_correction at r = 1, 3 and 64 changed slots, a
    third of them padded): makes inputs on the card from a fixed seed,
    launches the kernel, holds it against its plain PyTorch version
    (max|kernel - plain| <= 1e-4 * max|plain| + 1e-6), checks that it repeats
-   bit for bit, and times both with CUDA events. Then checks that
-   `sgd_train` and `deltagrad_replay` on the kernels repeat bit for bit.
-3. Drives the main path, `run_chef(method="infl", selector="increm")` on a
-   mimic-shaped dataset made on the card, 3 rounds of 10 labels, Table 4's
-   lr, l2 and epochs: first with constructor "retrain", then with the
-   default, DeltaGrad-L. Each runs on backend `cuda` (launch counts set to 0
-   just before, read just after) and on backend `reference`. Both backends
-   must select the same rows each round, or differ only at a priority tie,
-   and end within 0.005 F1. The DeltaGrad-L run on `cuda` must launch
-   minibatch_grad and replay_correction exactly as often as its schedule
-   predicts.
-4. Checkpoint: a DeltaGrad-L session on `cuda` runs 2 rounds, saving after
+   bit for bit, and times both with CUDA events.
+3. The same for the two attention kernels at OLMo-1B's full attention
+   shapes (16 heads of 128): flash_attention at a 256-token prefill, a tail
+   prefill (32 rows over 256 keys), GQA + window + softcap and bf16 (bf16
+   outputs: 2^-7 * max|plain|); paged_attention at batch 4 over 32 table
+   pages of 8 with a parked slot, and at G = 4 with a window. The flash
+   cases also time one F.scaled_dot_product_attention call (float32, the
+   same boolean mask) as the library yardstick.
+4. Serving: OLMo-1B at full width (float32, random weights from SEED) in
+   ServeEngine(batch_size=4, max_len=256) at its defaults, prefix sharing
+   on, serves 8 requests (prompt buckets 32-256, four sharing a 64-token
+   prefix, 16 new tokens each) on backend `cuda` (launch counts set to 0
+   just before, read just after) and on `reference`: same tokens (or a
+   top-2 tie within 2e-3), logits within 1e-3 * (1 + |ref|), a joined
+   request rerun solo gives the same tokens, and exactly 16 flash launches
+   per prefill and 16 paged launches per decode round.
+5. Then `sgd_train` and `deltagrad_replay` on the kernels repeat bit for
+   bit, and the CHEF main path, `run_chef(method="infl",
+   selector="increm")` on a mimic-shaped dataset made on the card, 3 rounds
+   of 10 labels, Table 4's lr, l2 and epochs: first with constructor
+   "retrain", then with the default, DeltaGrad-L. Each runs on backend
+   `cuda` (launch counts set to 0 just before, read just after) and on
+   backend `reference`. Both backends must select the same rows each round,
+   or differ only at a priority tie, and end within 0.005 F1. The
+   DeltaGrad-L run on `cuda` must launch minibatch_grad and
+   replay_correction exactly as often as its schedule predicts.
+6. Checkpoint: a DeltaGrad-L session on `cuda` runs 2 rounds, saving after
    each; a fresh session restored from round 1 runs round 2 again and must
-   end bit for bit where the uninterrupted one did (same rows, same w, same
-   trajectory).
-5. Trace: the first 600 steps of a DeltaGrad-L replay on `cuda`, timed on
+   end bit for bit where the uninterrupted one did.
+7. Trace: the first 600 steps of a DeltaGrad-L replay on `cuda`, timed on
    the host, run under sync-debug mode, and profiled (device busy time,
    idle share, blocking runtime calls, the costliest host ops).
-6. Prints the kernels line (launches from the DeltaGrad-L run on `cuda`),
-   the card's name and power limit, and last `{"ok": true, "device": {...}}`.
+8. Prints the kernels line (launches from the DeltaGrad-L run on `cuda`,
+   and for the attention kernels from the serving run on `cuda`), the
+   card's name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero. Needs a CUDA device; imports nothing of JAX or of
 the JAX package.
@@ -66,7 +82,19 @@ REPLACES = {
     "minibatch_grad": "src/repro/kernels/minibatch_grad.py:51",
     "infl_scores": "src/repro/kernels/infl_scores.py:37",
     "replay_correction": "src/repro/kernels/replay_correction.py:47",
+    "flash_attention": "src/repro/kernels/flash_attention.py:94",
+    "paged_attention": "src/repro/kernels/paged_attention.py:157",
 }
+CHEF_KERNELS = ("lr_grad", "lr_hvp", "minibatch_grad", "infl_scores", "replay_correction")
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+BF16_TOL_REL = 2.0**-7  # bf16 outputs: each side rounds once, so they may sit one bf16 step apart
+# the serving path: OLMo-1B at full width, random weights from SEED
+SERVE_LENGTHS = (70, 20, 140, 100, 45, 200, 90, 180)  # prompt buckets 32 to 256
+SERVE_SHARED = (0, 2, 3, 5)  # these requests share a 64-token prefix (2 per block class)
+SERVE_PREFIX, SERVE_MAX_NEW, SERVE_BATCH, SERVE_MAX_LEN = 64, 16, 4, 256
+SERVE_JOINED = 5  # a request admitted mid-stream (a prefix hit), rerun solo
+LOGIT_TOL = 1e-3  # cuda vs reference logits: |a - b| <= LOGIT_TOL * (1 + |b|)
+TIE_MARGIN = 2 * LOGIT_TOL  # tokens may part only where the top-2 logits lie this close
 
 
 def fail(msg: str) -> None:
@@ -107,11 +135,12 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     return total / reps
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """Least time in ms: bytes over the memory rate or operations over the
-    float32 rate, whichever is larger."""
+    peak rate of their type (float32 unless given), whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -124,7 +153,10 @@ def ptxas_report(log: str) -> list[str]:
         if m:
             n = int(m.group(1))
             base, rest = m.group(2)[:n], m.group(2)[n:]
-            args = re.findall(r"Li(\d+)E", rest.split("EEv")[0]) if rest.startswith("I") else []
+            targs = rest.split("EEv")[0] if rest.startswith("I") else ""
+            args = re.findall(r"Li(\d+)E", targs)
+            if "bfloat16" in targs or re.search(r"[EI]f$", targs):
+                args.append("bf16" if "bfloat16" in targs else "f32")
             name = base + (f"<{','.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -362,7 +394,7 @@ def loop_phase(torch, card_line: str, ds, cfg, constructor: str) -> dict:
         if res[0].w.shape != (C, D) or int(res[0].dataset.cleaned.sum()) != ROUNDS * B:
             fail(f"{constructor} {name} run: w {tuple(res[0].w.shape)}, "
                  f"{int(res[0].dataset.cleaned.sum())} cleaned")
-    path = [k for k in REPLACES if k != "replay_correction" or constructor == "deltagrad"]
+    path = [k for k in CHEF_KERNELS if k != "replay_correction" or constructor == "deltagrad"]
     missing = [k for k in path if launches[k] == 0]
     if missing:
         fail(f"the {constructor} cuda run launched no {missing}")
@@ -426,6 +458,39 @@ def checkpoint_phase(torch, ds, cfg) -> None:
         fail(f"the restored session does not repeat the uninterrupted one: {same}")
 
 
+def _device_profile(torch, fn, top: int = 12) -> dict:
+    """fn() once under torch.profiler: its host wall, the union of the
+    kernels' device intervals (busy time) and the device's idle share
+    against the wall, the CUDA runtime calls that block the host, the host
+    ops of most self time, and the device kernels of most total time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy += max(0.0, b - max(a, end))  # union of the device intervals, in us
+        end = max(end, b)
+    by_kernel: dict = {}
+    for e in device:
+        n, us = by_kernel.get(e.name, (0, 0.0))
+        by_kernel[e.name] = (n + 1, us + e.time_range.end - e.time_range.start)
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    return {"wall_s": wall, "busy_us": busy, "kernels": len(device),
+            "idle_share": 1.0 - busy / (wall * 1e6),
+            "blocking": {e.key: e.count for e in host if "Synchronize" in e.key
+                         or e.key in ("cudaMemcpy", "cudaStreamWaitEvent")},
+            "top_host_ops": [(e.key, e.count, e.self_cpu_time_total) for e in
+                             sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:top]],
+            "top_device_kernels": sorted(([k[:90], n, us] for k, (n, us) in by_kernel.items()),
+                                         key=lambda x: -x[2])[:top]}
+
+
 def trace_phase(torch, card_line: str, ds, cfg) -> None:
     """Where a DeltaGrad-L replay step's time goes on the card: the first
     TRACE_STEPS steps of a mimic replay (10 rows cleaned), once untraced
@@ -435,9 +500,6 @@ def trace_phase(torch, card_line: str, ds, cfg) -> None:
     CUDA runtime calls that block the host, and the host ops that cost the
     most."""
     import warnings
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import deltagrad, lr_head
     from repro_torch.core.backend import Backend
@@ -471,30 +533,333 @@ def trace_phase(torch, card_line: str, ds, cfg) -> None:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     sync_warnings = sorted({str(w.message).splitlines()[0] for w in caught})
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        replay()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:  # union of the device intervals, in us
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
-    blocking = {e.key: e.count for e in host
-                if "Synchronize" in e.key or e.key in ("cudaMemcpy", "cudaStreamWaitEvent")}
-    top = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    prof = _device_profile(torch, replay)
     emit({"phase": "trace", "what": "deltagrad_replay, backend cuda, mimic widths",
           "steps": n, "host_us_per_step_untraced": wall_untraced / n * 1e6,
-          "host_us_per_step_traced": wall / n * 1e6,
-          "device_busy_us_per_step": busy / n, "device_kernels": len(spans),
-          "device_idle_share": 1.0 - busy / (wall * 1e6),
-          "sync_debug_warnings": sync_warnings, "blocking_runtime_calls": blocking,
+          "host_us_per_step_traced": prof["wall_s"] / n * 1e6,
+          "device_busy_us_per_step": prof["busy_us"] / n, "device_kernels": prof["kernels"],
+          "device_idle_share": prof["idle_share"],
+          "sync_debug_warnings": sync_warnings, "blocking_runtime_calls": prof["blocking"],
           "top_host_ops_self_us_per_step": [
-              [e.key, e.count / n, e.self_cpu_time_total / n] for e in top],
+              [k, c / n, us / n] for k, c, us in prof["top_host_ops"]],
           "card": card_line})
+
+
+def _check_and_time(torch, name: str, kern, plain, library, shape, nbytes: float, ops: float,
+                    ops_per_s: float, card_line: str, bf16: bool = False,
+                    pairs=lambda out, ref: zip(out, ref)) -> dict:
+    """Hold a kernel against its plain version (tuple outputs compared pair by
+    pair, as `pairs` matches them up), check a bit-for-bit repeat, and time
+    the kernel, the plain version and the library call (if any) with CUDA
+    events."""
+    from repro_torch.kernels import LAUNCHES
+
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
+    out = as_tuple(kern())
+    torch.cuda.synchronize()
+    ref = as_tuple(plain())
+    torch.cuda.synchronize()
+    rel = BF16_TOL_REL if bf16 else TOL_REL
+    err, limit = 0.0, 0.0
+    for a, b in pairs(out, ref):
+        e = float((a.float() - b.float()).abs().max())
+        lim = rel * float(b.float().abs().max()) + TOL_ABS
+        if not (bool(torch.isfinite(a).all()) and e <= lim):
+            fail(f"{name}: max|kernel - plain| = {e} > {lim} at {shape}")
+        err, limit = max(err, e), max(limit, lim)
+    if not all(torch.equal(a, b) for a, b in zip(out, as_tuple(kern()))):
+        fail(f"{name}: two launches on the same inputs differ")
+    ms = time_ms(torch, kern)
+    plain_ms = time_ms(torch, plain)
+    library_ms = time_ms(torch, library) if library is not None else None
+    bound_ms, bound_by = bound(nbytes, ops, ops_per_s)
+    emit({"phase": "kernel", "name": name, "shape": shape, "max_abs_err": err,
+          "tolerance": f"max|kernel-plain| <= {rel}*max|plain| + {TOL_ABS} (largest: {limit})",
+          "bitwise_repeat": True, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "library_ms": library_ms, "card": card_line,
+          "launches": dict(LAUNCHES)})
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def attention_kernel_phase(torch, card_line: str) -> dict:
+    """The two serving kernels against their plain versions at OLMo-1B's full
+    attention shapes (16 heads of 128): flash at a prefill (S = 256), a tail
+    prefill (32 rows at positions 64.. over 256 keys), GQA + window +
+    softcap, and bf16; the paged partials at batch 4 with 32 table pages of
+    8, one slot parked, and at G = 4 with a window. Returns the figures of
+    the main path's shapes (prefill, batch-4 decode) for the kernels line."""
+    from repro_torch.kernels import ops, paged_attention
+    from repro_torch.models.attention import AttnSpec
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    results = {}
+    flash_cases = {
+        # name: B, Sq, Skv, Hq, Hkv, D, first q position, window, softcap, dtype
+        "flash_attention": (1, 256, 256, 16, 16, 128, 0, 0, 0.0, torch.float32),
+        "flash_attention/tail": (1, 32, 256, 16, 16, 128, 64, 0, 0.0, torch.float32),
+        "flash_attention/gqa_window_softcap": (1, 256, 256, 16, 4, 128, 0, 64, 30.0,
+                                               torch.float32),
+        "flash_attention/bf16": (1, 256, 256, 16, 16, 128, 0, 0, 0.0, torch.bfloat16),
+    }
+    for name, (B, Sq, Skv, Hq, Hkv, D, off, window, softcap, dtype) in flash_cases.items():
+        q = torch.randn(B, Sq, Hq, D, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).to(dtype)
+        qpos = torch.arange(off, off + Sq, dtype=torch.int32, device=dev)
+        kpos = torch.arange(Skv, dtype=torch.int32, device=dev)
+        spec = AttnSpec(True, window, softcap)
+        visible = qpos[:, None] >= kpos[None, :]
+        if window:
+            visible &= qpos[:, None] - kpos[None, :] < window
+        # the library yardstick: one SDPA call, float32, the same boolean mask
+        # (no softcap: SDPA has none, so that case has no library time)
+        qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+        library = None if softcap else (
+            lambda qf=qf, kf=kf, vf=vf, m=visible, gqa=Hq != Hkv:
+            F.scaled_dot_product_attention(qf, kf, vf, attn_mask=m, enable_gqa=gqa))
+        size = q.element_size()
+        nbytes = size * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D) + 4.0 * (Sq + Skv)
+        ops_n = 4.0 * D * float(visible.sum()) * B * Hq
+        results[name] = _check_and_time(
+            torch, name, lambda a=(q, k, v, qpos, kpos, spec): ops.flash_attention(*a),
+            lambda a=(q, k, v, qpos, kpos, spec): ops.flash_attention_ref(*a), library,
+            [B, Sq, Skv, Hq, Hkv, D, off, window, softcap, str(dtype)], nbytes, ops_n,
+            BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S, card_line,
+            bf16=dtype == torch.bfloat16)
+    paged_cases = {
+        # name: B, Hkv, G, D, P, table pages, pool pages, window
+        "paged_attention": (4, 16, 1, 128, 8, 32, 129, 0),
+        "paged_attention/gqa4_window": (4, 4, 4, 128, 8, 32, 129, 40),
+    }
+    for name, (B, Hkv, G, D, P, n_table, n_phys, window) in paged_cases.items():
+        q = torch.randn(B, Hkv, G, D, generator=g, device=dev)
+        k_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev)
+        v_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev)
+        ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
+        table = torch.zeros(B, n_table, dtype=torch.int32, device=dev)
+        pos = torch.zeros(B, dtype=torch.int32, device=dev)
+        # three live slots at positions 217, 100 and 37 with their whole
+        # 32-page allocation; the last slot parked (all trash, position 0)
+        for b, p in enumerate((217, 100, 37)):
+            table[b] = ids[b * n_table:(b + 1) * n_table]
+            pos[b] = p
+        kpos0 = torch.arange(n_table, device=dev) * P  # first position of each page
+        live = (table != 0) & (kpos0[None] <= pos[:, None])
+        if window:
+            live &= kpos0[None] + P - 1 > pos[:, None] - window
+        n_live = float(live.sum())
+        nbytes = (4.0 * (B * Hkv * G * D + 2 * n_live * P * Hkv * D + B * n_table + B)
+                  + 4.0 * B * Hkv * n_table * G * (D + 2))
+        ops_n = 4.0 * G * D * P * n_live * Hkv
+        kw = dict(window=window)
+        a = (q, k_pages, v_pages, table, pos)
+        results[name] = _check_and_time(
+            torch, name, lambda a=a: paged_attention.paged_attention_partials(*a, **kw),
+            lambda a=a: paged_attention.paged_attention_partials_reference(*a, **kw), None,
+            [B, Hkv, G, D, P, n_table, n_phys, window], nbytes, ops_n, FP32_OPS_PER_S,
+            card_line, pairs=lambda out, ref, name=name: _partial_pairs(torch, name, out, ref))
+    return results
+
+
+def _partial_pairs(torch, name, out, ref):
+    """The paged partials' pairs to compare: m where the plain version has a
+    live page (a neutral page's m is -1e30, which would swamp a relative
+    tolerance; there the kernel must give exactly -1e30), l and acc whole."""
+    (m, l, acc), (m_ref, l_ref, acc_ref) = out, ref
+    live = m_ref > -1e29
+    if not torch.equal(m[~live], m_ref[~live]):
+        fail(f"{name}: a neutral page's m is not exactly -1e30")
+    return [(m[live], m_ref[live]), (l, l_ref), (acc, acc_ref)]
+
+
+def _first_divergence(a, b):
+    """Index of the first token where two streams differ, or None."""
+    return next((i for i, (x, y) in enumerate(zip(a.out, b.out)) if x != y), None)
+
+
+def serving_phase(torch, card_line: str) -> tuple[dict, dict]:
+    """The paged serving path at OLMo-1B's full width, float32, random
+    weights from SEED: ServeEngine(batch_size=4, max_len=256) at its
+    defaults (prefix sharing on) serves 8 requests (prompt buckets 32 to
+    256, four sharing a 64-token prefix, 16 new tokens each), on backend
+    cuda (launch counts set to 0 just before, read just after) and on
+    backend reference. Tokens must agree (or part at a top-2 tie within
+    TIE_MARGIN), logits within LOGIT_TOL up to the first parting; a request
+    that joined mid-stream, rerun solo on cuda, gives the same tokens; the
+    launches must be 16 per prefill and 16 per decode round. Times each
+    prefill (by bucket width) and decode round with a device sync around
+    it. Returns the cuda run's launches and figures."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServeConfig, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config("olmo-1b")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    emit({"phase": "serve_model", "arch": cfg.name, "params": n_params,
+          "param_bytes": 4 * n_params, "init_s": time.perf_counter() - t0,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "padded_vocab": cfg.padded_vocab})
+    r = np.random.default_rng(SEED)
+    shared = r.integers(0, cfg.vocab_size, SERVE_PREFIX)
+    prompts = []
+    for i, n in enumerate(SERVE_LENGTHS):
+        p = r.integers(0, cfg.vocab_size, n)
+        if i in SERVE_SHARED:
+            p[:SERVE_PREFIX] = shared
+        prompts.append(p.astype(np.int32))
+
+    timings: list = []
+
+    def timed(kind, fn):
+        def call(params, *args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(params, *args, **kw)
+            torch.cuda.synchronize()
+            batch = args[1] if kind == "decode" else args[0]  # decode_step(params, cache, batch)
+            timings.append((kind, int(batch["tokens"].shape[1]), time.perf_counter() - t))
+            return out
+        return call
+
+    def serve(backend, reqs, batch_size=SERVE_BATCH):
+        eng = ServeEngine(model, params, backend=backend, device=dev,
+                          config=ServeConfig(batch_size=batch_size, max_len=SERVE_MAX_LEN,
+                                             trace_logits=True))
+        t = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        return done, dict(eng.stats), time.perf_counter() - t
+
+    plain = (model.prefill, model.prefill_tail, model.decode_step)
+    model.prefill = timed("prefill", plain[0])
+    model.prefill_tail = timed("tail", plain[1])
+    model.decode_step = timed("decode", plain[2])
+    for backend in ("cuda", "reference"):  # warm-up: cuBLAS, the kernels' first load
+        serve(backend, [Request(uid=-1, prompt=prompts[1], max_new=2)], batch_size=1)
+    runs = {}
+    for backend in ("cuda", "reference"):
+        timings.clear()
+        if backend == "cuda":
+            reset_launches()
+        done, stats, wall = serve(backend, [Request(uid=i, prompt=p, max_new=SERVE_MAX_NEW)
+                                            for i, p in enumerate(prompts)])
+        launches = dict(LAUNCHES)
+        prefill_ms: dict = {}
+        for kind, width, sec in timings:
+            if kind != "decode":
+                prefill_ms.setdefault(f"{kind}/{width}", []).append(sec * 1e3)
+        decode_s = [sec for kind, _, sec in timings if kind == "decode"]
+        n_tok = sum(len(q.out) for q in done)
+        runs[backend] = (done, stats, launches)
+        emit({"phase": "serve", "backend": backend, "requests": len(done), "tokens": n_tok,
+              "wall_s": wall, "tokens_per_s": n_tok / wall, "stats": stats,
+              "prefill_ms_by_width": prefill_ms,
+              "decode_ms_per_round_mean": 1e3 * sum(decode_s) / len(decode_s),
+              "decode_ms_per_round_min": 1e3 * min(decode_s),
+              "decode_rounds": len(decode_s),
+              "decode_tokens_per_s": stats["slot_rounds"] / sum(decode_s),
+              "launches": launches if backend == "cuda" else None,
+              "finish_order": [q.uid for q in done], "card": card_line})
+    model.prefill, model.prefill_tail, model.decode_step = plain
+
+    (done_c, stats_c, launches), (done_r, stats_r, _) = runs["cuda"], runs["reference"]
+    # the schedule depends on the prompts and budgets only
+    if [q.uid for q in done_c] != [q.uid for q in done_r] or stats_c != stats_r:
+        fail(f"serve: the backends scheduled differently: {stats_c} vs {stats_r}")
+    worst, parted = 0.0, []
+    by_uid = {q.uid: q for q in done_r}
+    for q in done_c:
+        p = by_uid[q.uid]
+        if len(q.out) != SERVE_MAX_NEW or len(p.out) != SERVE_MAX_NEW:
+            fail(f"serve: request {q.uid} gave {len(q.out)} / {len(p.out)} tokens")
+        i = _first_divergence(q, p)
+        upto = SERVE_MAX_NEW if i is None else i + 1
+        for a, b in zip(q.logits[:upto], p.logits[:upto]):
+            if not np.isfinite(a).all():
+                fail(f"serve: request {q.uid}: non-finite logits")
+            worst = max(worst, float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))))
+        if i is not None:
+            top2 = np.sort(p.logits[i])[-2:]
+            margin = float(top2[1] - top2[0])
+            parted.append({"uid": q.uid, "token": i, "top2_margin": margin})
+            if margin > TIE_MARGIN:
+                fail(f"serve: request {q.uid} parts at token {i} with a top-2 margin {margin}")
+    if worst > LOGIT_TOL:
+        fail(f"serve: cuda vs reference logits differ by {worst} > {LOGIT_TOL} (relative to 1+|b|)")
+    want = {"flash_attention": cfg.n_layers * len(prompts),
+            "paged_attention": cfg.n_layers * stats_c["decode_rounds"]}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"serve: the cuda run launched {got}, its schedule predicts {want}")
+    joined = next(q for q in done_c if q.uid == SERVE_JOINED)
+    solo, _, _ = serve("cuda", [Request(uid=joined.uid, prompt=prompts[joined.uid],
+                                        max_new=SERVE_MAX_NEW)], batch_size=1)
+    i = _first_divergence(joined, solo[0])
+    if i is not None:
+        top2 = np.sort(solo[0].logits[i])[-2:]
+        if float(top2[1] - top2[0]) > TIE_MARGIN:
+            fail(f"serve: request {joined.uid} joined and solo part at token {i}")
+    emit({"phase": "serve_compare", "same_tokens": not parted, "parted": parted,
+          "max_logit_diff_rel": worst, "logit_tol": LOGIT_TOL, "tie_margin": TIE_MARGIN,
+          "prefix_hits": stats_c["prefix_hits"], "launches": got, "predicted": want,
+          "joined_uid": joined.uid, "joined_entry_width": joined.entry_width,
+          "joined_vs_solo_same_tokens": i is None,
+          "joined_vs_solo_max_logit_diff": float(max(
+              np.abs(a - b).max() for a, b in zip(joined.logits, solo[0].logits)))})
+    if stats_c["prefix_hits"] < 2:
+        fail(f"serve: {stats_c['prefix_hits']} prefix hits, the requests were built for 2")
+    serve_trace(torch, card_line, lambda: serve("cuda", [
+        Request(uid=i, prompt=p, max_new=SERVE_MAX_NEW) for i, p in enumerate(prompts)]),
+        stats_c["decode_rounds"])
+    return launches
+
+
+def serve_trace(torch, card_line: str, serve_once, rounds: int) -> None:
+    """Where the serving run's time goes on the card: the same 8-request run
+    on `cuda` once under sync-debug mode (every synchronizing PyTorch call
+    warns) and once under torch.profiler (device busy time and idle share,
+    blocking runtime calls, the costliest host ops and device kernels)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            serve_once()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync_warnings = sorted({str(w.message).splitlines()[0] for w in caught})
+    prof = _device_profile(torch, serve_once, top=15)
+    emit({"phase": "serve_trace", "what": "8 requests, OLMo-1B full width, backend cuda",
+          "wall_s_traced": prof["wall_s"], "device_busy_s": prof["busy_us"] * 1e-6,
+          "device_idle_share": prof["idle_share"], "device_kernels": prof["kernels"],
+          "decode_rounds": rounds, "sync_debug_warnings": len(caught),
+          "sync_debug_kinds": sync_warnings, "blocking_runtime_calls": prof["blocking"],
+          "top_host_ops_self_us": prof["top_host_ops"],
+          "top_device_kernels_us": prof["top_device_kernels"], "card": card_line})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _near_bth(sel, j: int) -> bool:
@@ -517,12 +882,15 @@ def main() -> None:
           "cuda": torch.version.cuda, "card": card_line})
     build_phase()
     kern = kernel_phase(torch, card_line)
+    kern.update(attention_kernel_phase(torch, card_line))
+    serve_launches = serving_phase(torch, card_line)
     determinism_phase(torch)
     ds, cfg = dataset_phase(torch)
     loop_phase(torch, card_line, ds, cfg, "retrain")
     launches = loop_phase(torch, card_line, ds, cfg, "deltagrad")
     checkpoint_phase(torch, ds, cfg)
     trace_phase(torch, card_line, ds, cfg)
+    launches.update({k: serve_launches[k] for k in REPLACES if k not in CHEF_KERNELS})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
          "replaces": REPLACES[name], "launches": launches[name], **kern[name]}

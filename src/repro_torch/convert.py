@@ -89,3 +89,32 @@ def state_from_numpy(state: dict, device="cpu") -> dict:
         else:
             out[name] = torch.as_tensor(np.array(a), device=device).to(dtype)
     return out
+
+
+def model_params_from_numpy(cfg, tree, device="cpu") -> dict:
+    """The JAX package's model parameters (its `Model.init` pytree with numpy
+    leaves: `embed.tok`, the stacked `blocks[j]` leaves `attn.wq/wk/wv/wo`,
+    `mlp.wi/wg/wo`, the norms where parametric, `tail`, `final_norm`) -> the
+    port's parameter tree on `device`. Raises unless every name and shape is
+    the one the port's `init_params` makes for `cfg`."""
+    from repro_torch.models import transformer as T
+
+    want = T.init_params(cfg, lambda shape, axes=None, fan_in=None, mode="normal":
+                         torch.empty(shape, device="meta"))
+
+    def walk(w, t, path):
+        if isinstance(w, dict):
+            if not isinstance(t, dict) or set(t) != set(w):
+                raise ValueError(f"params{path}: keys {sorted(t) if isinstance(t, dict) else t!r}"
+                                 f", want {sorted(w)}")
+            return {k: walk(w[k], t[k], f"{path}.{k}") for k in w}
+        if isinstance(w, tuple):
+            if len(t) != len(w):
+                raise ValueError(f"params{path}: {len(t)} entries, want {len(w)}")
+            return tuple(walk(a, b, f"{path}[{i}]") for i, (a, b) in enumerate(zip(w, t)))
+        leaf = _f32(t, device)
+        if tuple(leaf.shape) != tuple(w.shape):
+            raise ValueError(f"params{path}: shape {tuple(leaf.shape)}, want {tuple(w.shape)}")
+        return leaf
+
+    return walk(want, tree, "")

@@ -13,6 +13,13 @@ explicit override) and passed down, carries the loop's ops:
                     batch_size)          -> [C, d+1]  DeltaGrad-L Eq. 4 correction
   probs(w, Xa)                           -> [N, C]    softmax(Xa wᵀ)
 
+Serving ops, in the model layout (q [B,S,Hq,D]; k, v [B,S,Hkv,D]):
+
+  flash_attention(q, k, v, qpos, kpos, spec)  -> [B,Sq,Hq,D]  every prefill
+                                                 and tail prefill
+  paged_decode_attention(q, k_pages, v_pages, pages, pos, spec)
+                                              -> [B,1,Hq,D]   every decode step
+
   reference  plain PyTorch on any device: the semantic oracle.
   cuda       the hand-written kernels of `repro_torch.kernels`. Each wrapper
              computes its kernel's plain version for CPU tensors only; for
@@ -98,6 +105,26 @@ class Backend:
 
         return replay_correction(w, Xa, Y_old, Y_new, w_old, w_new, corr_idx, corr_mask,
                                  batch_size)
+
+    def flash_attention(self, q, k, v, qpos, kpos, spec) -> torch.Tensor:
+        """Prefill attention: q [B,Sq,Hq,D]; k, v [B,Skv,Hkv,D]; qpos [Sq] and
+        kpos [Skv] absolute positions; `spec` an `AttnSpec` (causal, window,
+        logit softcap) -> [B,Sq,Hq,D]."""
+        from repro_torch.kernels import ops
+
+        if self.name == "reference":
+            return ops.flash_attention_ref(q, k, v, qpos, kpos, spec)
+        return ops.flash_attention(q, k, v, qpos, kpos, spec)
+
+    def paged_decode_attention(self, q, k_pages, v_pages, pages, pos, spec) -> torch.Tensor:
+        """One-token attention over the paged cache: q [B,1,Hq,D]; pools
+        [N_pages, P, Hkv, D]; pages [B, n_pages] block table; pos [B] per-slot
+        positions (the cache already holds position pos) -> [B,1,Hq,D]."""
+        from repro_torch.kernels import ops
+
+        if self.name == "reference":
+            return ops.paged_decode_attention_ref(q, k_pages, v_pages, pages, pos, spec)
+        return ops.paged_decode_attention(q, k_pages, v_pages, pages, pos, spec)
 
     def unsharded(self) -> "Backend":
         """The backend for small side computations (the validation gradient).

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for Hopper (sm_90a) of the CHEF cleaning loop.
+"""Hand-written CUDA kernels for Hopper (sm_90a): the CHEF cleaning loop's
+and the paged serving path's.
 
   lr_grad            Eq. 1 batch gradient (validation gradient)
   lr_hvp             H(w)v, the CG inner loop
@@ -7,6 +8,11 @@
   infl_scores        Eq. 6 score matrix
   replay_correction  DeltaGrad-L correction over a batch's changed rows, every
                      replay step
+  flash_attention    GQA flash attention, every prefill and tail prefill
+  paged_attention    per-page decode partials through a block table, every
+                     decode step (merged by `combine_pages`)
+
+`ops` holds the model-layout adapters of the two attention kernels.
 
 Each module holds the kernel's wrapper, its plain PyTorch version and a note
 on what it replaces and what bounds it. `build` compiles `csrc/` with nvcc;

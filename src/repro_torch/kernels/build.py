@@ -20,7 +20,8 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parent / "_build"
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's nvcc where none is on PATH
-SOURCES = ("lr_grad", "lr_hvp", "minibatch_grad", "infl_scores", "replay_correction")
+SOURCES = ("lr_grad", "lr_hvp", "minibatch_grad", "infl_scores", "replay_correction",
+           "flash_attention", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

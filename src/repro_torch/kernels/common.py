@@ -23,7 +23,9 @@ LAUNCHES = {name: 0 for name in build.SOURCES}
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+INT64 = ctypes.c_longlong
 FLOAT = ctypes.c_float
+FLOAT_TYPES = (torch.float32, torch.bfloat16)  # what the attention kernels read
 
 
 def reset_launches() -> None:
@@ -74,6 +76,36 @@ def check(kernel: str, n_classes: int, **tensors) -> torch.device:
         if t.dtype != want or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be a contiguous {want} tensor of shape "
                              f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+        if t.numel() == 0:
+            raise ValueError(f"{kernel}: {name} is empty")
+    return device
+
+
+def check_attention(kernel: str, **tensors) -> torch.device:
+    """The attention kernels' input check: raise unless every tensor lies on
+    one CUDA device, is non-empty, has the expected shape and a last stride
+    of 1 (and is contiguous where asked), the int32 ones are int32 and the
+    float ones share one of `FLOAT_TYPES`. `tensors` maps a name to
+    `(tensor, shape, kind, contiguous)` with kind "float" or "int32".
+    Returns the device."""
+    device, ftype = None, None
+    for name, (t, shape, kind, contiguous) in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel}: {name} is on {t.device}, not on a CUDA device")
+        if device is not None and t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, the others on {device}")
+        device = t.device
+        if kind == "int32":
+            ok = t.dtype == torch.int32
+        else:
+            ok = t.dtype in FLOAT_TYPES and t.dtype == (ftype or t.dtype)
+            ftype = ftype or t.dtype
+        laid_out = t.is_contiguous() if contiguous else t.stride(-1) == 1
+        if not ok or tuple(t.shape) != tuple(shape) or not laid_out:
+            want = "int32" if kind == "int32" else f"float32 or bfloat16 (as the others, {ftype})"
+            raise ValueError(f"{kernel}: {name} must be a {want} tensor of shape {tuple(shape)}"
+                             f"{' (contiguous)' if contiguous else ' with a last stride of 1'}, "
+                             f"got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
         if t.numel() == 0:
             raise ValueError(f"{kernel}: {name} is empty")
     return device

@@ -12,6 +12,7 @@ another order than the plain version's).
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -223,3 +224,190 @@ def test_kill_and_restore_repeat_the_run_bit_for_bit_on_the_card(tmp_path):
     assert torch.equal(res.dataset.cleaned, full.dataset.cleaned)
     assert torch.equal(res.w, full.w)
     assert [r.f1_test for r in res.history] == [r.f1_test for r in full.history]
+
+
+# bf16 outputs: each side rounds its float32 result to bfloat16 once, so two
+# results within the float32 tolerance may still land one bf16 step apart
+# (2^-8 of the value): max|kernel - plain| <= 2^-7 * max|plain|.
+BF16_TOL_REL = 2.0**-7
+
+# B, Sq, Skv, Hq, Hkv, D, first q position, window, softcap, dtype
+FLASH_CASES = [
+    (1, 256, 256, 16, 16, 128, 0, 0, 0.0, torch.float32),  # an olmo-1b prefill
+    (1, 32, 256, 16, 16, 128, 64, 0, 0.0, torch.float32),  # a tail prefill
+    (2, 77, 77, 4, 2, 64, 0, 16, 30.0, torch.float32),  # GQA + window + softcap, ragged
+    (1, 100, 130, 8, 2, 16, 30, 0, 0.0, torch.bfloat16),
+    (1, 5, 3, 2, 1, 256, 0, 0, 0.0, torch.float32),
+]
+
+
+def _tol(dtype, ref):
+    rel = BF16_TOL_REL if dtype == torch.bfloat16 else TOL_REL
+    return rel * float(ref.float().abs().max()) + TOL_ABS
+
+
+def test_attention_kernels_match_plain():
+    """One item for the two attention kernels (few items after
+    tests/test_serving_prop.py keep the xdist schedule; see
+    tests/test_torch_attention.py):
+
+    * the flash kernel, through the model-layout adapter, against the plain
+      blocked program at each of FLASH_CASES: within the tolerance, bit for
+      bit on a repeat, one launch a call; a row with no visible key gives
+      zeros;
+    * the paged partials kernel against its plain version at each of
+      PAGED_CASES: m, l, acc and the merged output within the tolerance,
+      trash and wholly invalid pages exactly (-1e30, 0, 0), bit for bit on
+      a repeat, one launch a call;
+    * no fallback: bad input on the card raises."""
+    dev = _card()
+    for case in FLASH_CASES:
+        _flash_case(dev, *case)
+    for case in PAGED_CASES:
+        _paged_case(dev, *case)
+    _attention_kernels_raise(dev)
+
+
+def _flash_case(dev, B, Sq, Skv, Hq, Hkv, D, off, window, softcap, dtype):
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import AttnSpec
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(B, Sq, Hq, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).to(dtype)
+    qpos = torch.arange(off, off + Sq, dtype=torch.int32, device=dev)
+    kpos = torch.arange(Skv, dtype=torch.int32, device=dev)
+    spec = AttnSpec(True, window, softcap)
+    before = LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, qpos, kpos, spec)
+    torch.cuda.synchronize()
+    ref = ops.flash_attention_ref(q, k, v, qpos, kpos, spec)
+    assert out.shape == ref.shape == (B, Sq, Hq, D) and out.dtype == dtype
+    assert float((out.float() - ref.float()).abs().max()) <= _tol(dtype, ref)
+    assert torch.equal(ops.flash_attention(q, k, v, qpos, kpos, spec), out)
+    assert LAUNCHES["flash_attention"] == before + 2
+    blind = ops.flash_attention(q, k, v, qpos - 10_000, kpos, spec)  # every key in the future
+    assert torch.equal(blind, torch.zeros_like(blind))
+
+
+# B, Hkv, G, D, P, table pages, pool pages, window, softcap, dtype
+PAGED_CASES = [
+    (4, 16, 1, 128, 8, 32, 129, 0, 0.0, torch.float32),  # olmo-1b decode, batch 4
+    (3, 2, 4, 64, 8, 6, 20, 5, 0.0, torch.float32),
+    (2, 2, 2, 32, 16, 4, 9, 0, 20.0, torch.bfloat16),
+]
+
+
+def _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype, seed=0):
+    """Pools, a block table and positions: slot 0 at a page boundary, slot 1
+    with an allocated page past its position, the last slot parked (all
+    trash, position 0); pages drawn without repeats from 1..n_phys-1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, 1, Hkv * G, D, generator=g, device=dev).to(dtype)
+    k_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev).to(dtype)
+    v_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev).to(dtype)
+    ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
+    table = torch.zeros(B, n_table, dtype=torch.int32, device=dev)
+    pos = torch.zeros(B, dtype=torch.int32, device=dev)
+    used = 0
+    for b in range(B - 1):
+        n = min(n_table, (n_phys - 1 - used) // max(B - 1, 1), 2 + 3 * b)
+        table[b, :n] = ids[used:used + n]
+        used += n
+        pos[b] = P * (n - 1) if b == 0 else P * (n - 2) + 1  # slot 1: last page past pos
+    return q, k_pages, v_pages, table, pos
+
+
+def _paged_case(dev, B, Hkv, G, D, P, n_table, n_phys, window, softcap, dtype):
+    from repro_torch.kernels import ops, paged_attention
+
+    q, k_pages, v_pages, table, pos = _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype)
+    qg = q.reshape(B, Hkv, G, D)
+    kw = dict(window=window, softcap=softcap)
+    before = LAUNCHES["paged_attention"]
+    out = paged_attention.paged_attention_partials(qg, k_pages, v_pages, table, pos, **kw)
+    torch.cuda.synchronize()
+    ref = paged_attention.paged_attention_partials_reference(qg, k_pages, v_pages, table, pos,
+                                                             **kw)
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert float((a - b).abs().max()) <= TOL_REL * float(b.abs().max()) + TOL_ABS
+    m, l, acc = out
+    kpos_first = torch.arange(n_table, device=dev) * P
+    dead = (table == 0) | (kpos_first[None] > pos[:, None])  # [B, n_table]
+    assert torch.equal(m.permute(0, 2, 1, 3)[dead], torch.full_like(m.permute(0, 2, 1, 3)[dead],
+                                                                   -1e30))
+    assert not l.permute(0, 2, 1, 3)[dead].any() and not acc.permute(0, 2, 1, 3, 4)[dead].any()
+    again = paged_attention.paged_attention_partials(qg, k_pages, v_pages, table, pos, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert LAUNCHES["paged_attention"] == before + 2
+    from repro_torch.models.attention import AttnSpec
+
+    spec = AttnSpec(True, window, softcap)
+    o = ops.paged_decode_attention(q, k_pages, v_pages, table, pos, spec)
+    o_ref = ops.paged_decode_attention_ref(q, k_pages, v_pages, table, pos, spec)
+    assert float((o.float() - o_ref.float()).abs().max()) <= _tol(dtype, o_ref)
+
+
+def _attention_kernels_raise(dev):
+    from repro_torch.kernels import flash_attention, paged_attention
+
+    q = torch.randn(1, 4, 8, 16, device=dev)
+    pos = torch.arange(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        flash_attention.flash_attention(q, q, q, pos.long(), pos)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention.flash_attention(q, q.bfloat16(), q, pos, pos)
+    with pytest.raises(ValueError, match="kv heads"):
+        flash_attention.flash_attention(q, q[:, :3], q[:, :3], pos, pos)
+    qg, k_pages, v_pages, table, ppos = _paged_inputs(dev, 2, 2, 2, 16, 8, 3, 9, torch.float32)
+    qg = qg.reshape(2, 2, 2, 16)
+    with pytest.raises(ValueError, match="device"):
+        paged_attention.paged_attention_partials(qg, k_pages, v_pages, table.cpu(), ppos)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_attention.paged_attention_partials(qg.transpose(2, 3).contiguous().transpose(2, 3),
+                                                 k_pages, v_pages, table, ppos)
+
+
+def test_serve_engine_cuda_matches_reference_on_the_card():
+    """ServeEngine on the kernels against ServeEngine on the reference
+    backend, on the card at a small width (reduced olmo-1b widened to 4
+    layers, d_model 256, GQA 4 / 2 heads of 64): the same finish order,
+    tokens and counters, logits within 1e-4 * max|logit| + 1e-5 (float32
+    sums in another order in two attention ops a layer), and each kernel
+    launched once a layer per prefill and per decode round."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServeConfig, ServeEngine
+
+    dev = _card()
+    cfg = reduced(get_config("olmo-1b"), n_layers=4, d_model=256, n_kv_heads=2, head_dim=64,
+                  d_ff=512, vocab_size=512)
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    r = np.random.default_rng(0)
+    shared = r.integers(0, 512, 16)
+    prompts = []
+    for i, n in enumerate((9, 30, 70, 140, 30, 60)):
+        p = r.integers(0, 512, n)
+        if i % 2 == 1:
+            p[:16] = shared
+        prompts.append(p.astype(np.int32))
+    runs = {}
+    for name in ("cuda", "reference"):
+        reset_launches()
+        eng = ServeEngine(model, params, backend=name, device=dev,
+                          config=ServeConfig(batch_size=3, max_len=160, trace_logits=True))
+        done = eng.run([Request(uid=i, prompt=p, max_new=5) for i, p in enumerate(prompts)])
+        runs[name] = (done, dict(eng.stats), dict(LAUNCHES))
+    (done, stats, launches), (done_ref, stats_ref, _) = runs["cuda"], runs["reference"]
+    assert [q.uid for q in done] == [q.uid for q in done_ref]
+    assert [q.out for q in done] == [q.out for q in done_ref]
+    assert stats == stats_ref and stats["prefix_hits"] >= 1
+    for a, b in zip(done, done_ref):
+        la, lb = np.stack(a.logits), np.stack(b.logits)
+        assert np.abs(la - lb).max() <= 1e-4 * np.abs(lb).max() + 1e-5
+    assert launches["flash_attention"] == cfg.n_layers * len(prompts)
+    assert launches["paged_attention"] == cfg.n_layers * stats["decode_rounds"]
