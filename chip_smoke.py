@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`src/repro_torch`) on one H100: the CHEF
-cleaning loop and the paged serving path.
+cleaning loop, the paged serving path and the sliding-window serving path.
 
     python3 chip_smoke.py
 
-1. Builds the seven CUDA kernels from `src/repro_torch/kernels/csrc` (one
-   nvcc per source, all at once) and prints nvcc's `-Xptxas -v` report.
+1. Builds the ten CUDA kernels from `src/repro_torch/kernels/csrc` (one
+   nvcc per source, all nine sources at once) and prints nvcc's
+   `-Xptxas -v` report.
 2. For each CHEF kernel, at the main path's shapes (the mimic widths of the
    paper's Table 3; replay_correction at r = 1, 3 and 64 changed slots, a
    third of them padded): makes inputs on the card from a fixed seed,
@@ -19,6 +20,14 @@ cleaning loop and the paged serving path.
    pages of 8 with a parked slot, and at G = 4 with a window. The flash
    cases also time one F.scaled_dot_product_attention call (float32, the
    same boolean mask) as the library yardstick.
+3b. The same for the sliding-window kernels at StarCoder2-3B's attention
+   shapes (24 query heads over 2 kv heads of 128, window 4096):
+   local_attention at an 8192-token prefill and a tail, chunked_prefill's
+   partials there with chunk 2048, block_sparse_attention at 2048 tokens
+   with a seeded random mask, paged_attention at StarCoder2's decode shape;
+   then, bit for bit, local == flash, chunked + merge == flash,
+   block-sparse with an all-ones mask == flash and with the band's mask ==
+   local.
 4. Serving: OLMo-1B at full width (float32, random weights from SEED) in
    ServeEngine(batch_size=4, max_len=256) at its defaults, prefix sharing
    on, serves 8 requests (prompt buckets 32-256, four sharing a 64-token
@@ -27,6 +36,17 @@ cleaning loop and the paged serving path.
    top-2 tie within 2e-3), logits within 1e-3 * (1 + |ref|), a joined
    request rerun solo gives the same tokens, and exactly 16 flash launches
    per prefill and 16 paged launches per decode round.
+4b. The block-sparse entry point, Backend.block_sparse_attention, with four
+   block masks at StarCoder2's head shapes on `cuda` (launch counts set to
+   0 just before, read just after) and on `reference`.
+4c. Serving StarCoder2-3B at full width (float32, random weights from SEED,
+   12.7 GB) in ServeEngine(batch_size=2, page_size=8): two prompts past the
+   4096 window (bucket 8192) and two of about 300 sharing a 128-token
+   prefix, 32 new tokens each, on `cuda` unchunked, on `cuda` with
+   prefill_chunk 2048 and on `reference`: the same tokens (or a top-2
+   tie), logits within 1e-3 * (1 + |ref|), the same counters, and the
+   launches, decode rounds and retired pages predicted before the runs;
+   then the unchunked run under torch.profiler.
 5. Then `sgd_train` and `deltagrad_replay` on the kernels repeat bit for
    bit, and the CHEF main path, `run_chef(method="infl",
    selector="increm")` on a mimic-shaped dataset made on the card, 3 rounds
@@ -44,7 +64,9 @@ cleaning loop and the paged serving path.
    the host, run under sync-debug mode, and profiled (device busy time,
    idle share, blocking runtime calls, the costliest host ops).
 8. Prints the kernels line (launches from the DeltaGrad-L run on `cuda`,
-   and for the attention kernels from the serving run on `cuda`), the
+   for flash and paged attention from the OLMo-1B run on `cuda`, for
+   block-sparse attention from phase 4b, for local attention from the
+   unchunked and for chunked prefill from the chunked StarCoder2 run), the
    card's name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero. Needs a CUDA device; imports nothing of JAX or of
@@ -84,6 +106,9 @@ REPLACES = {
     "replay_correction": "src/repro/kernels/replay_correction.py:47",
     "flash_attention": "src/repro/kernels/flash_attention.py:94",
     "paged_attention": "src/repro/kernels/paged_attention.py:157",
+    "local_attention": "src/repro/kernels/local_attention.py:190",
+    "block_sparse_attention": "src/repro/kernels/local_attention.py:212",
+    "chunked_prefill": "src/repro/kernels/chunked_prefill.py:131",
 }
 CHEF_KERNELS = ("lr_grad", "lr_hvp", "minibatch_grad", "infl_scores", "replay_correction")
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -95,6 +120,15 @@ SERVE_PREFIX, SERVE_MAX_NEW, SERVE_BATCH, SERVE_MAX_LEN = 64, 16, 4, 256
 SERVE_JOINED = 5  # a request admitted mid-stream (a prefix hit), rerun solo
 LOGIT_TOL = 1e-3  # cuda vs reference logits: |a - b| <= LOGIT_TOL * (1 + |b|)
 TIE_MARGIN = 2 * LOGIT_TOL  # tokens may part only where the top-2 logits lie this close
+# the sliding-window path: StarCoder2-3B at full width (window 4096), random
+# weights from SEED; two long prompts past the window (bucket 8192) and two
+# short ones sharing a page-aligned prefix, 32 new tokens each
+SC_LENGTHS = (5000, 6000, 300, 310)
+SC_SHARED = (2, 3)  # these share SC_PREFIX tokens: the second admitted is a prefix hit
+SC_PREFIX, SC_MAX_NEW, SC_BATCH, SC_PAGE = 128, 32, 2, 8
+SC_CHUNK = 2048  # the chunked run's prefill_chunk
+SC_SEQ = 8192  # the kernel phase's prefill width: the long prompts' bucket
+BLOCK_SPARSE_CALLS = 4  # Backend.block_sparse_attention calls of the block-sparse phase
 
 
 def fail(msg: str) -> None:
@@ -155,8 +189,9 @@ def ptxas_report(log: str) -> list[str]:
             base, rest = m.group(2)[:n], m.group(2)[n:]
             targs = rest.split("EEv")[0] if rest.startswith("I") else ""
             args = re.findall(r"Li(\d+)E", targs)
-            if "bfloat16" in targs or re.search(r"[EI]f$", targs):
+            if "bfloat16" in targs or re.search(r"[EI]f(?:L|$)", targs):
                 args.append("bf16" if "bfloat16" in targs else "f32")
+            args += [f"mask={b}" for b in re.findall(r"Lb([01])E", targs)]
             name = base + (f"<{','.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -547,11 +582,12 @@ def trace_phase(torch, card_line: str, ds, cfg) -> None:
 
 def _check_and_time(torch, name: str, kern, plain, library, shape, nbytes: float, ops: float,
                     ops_per_s: float, card_line: str, bf16: bool = False,
-                    pairs=lambda out, ref: zip(out, ref)) -> dict:
+                    pairs=lambda out, ref: zip(out, ref), library_computes: str = "") -> dict:
     """Hold a kernel against its plain version (tuple outputs compared pair by
     pair, as `pairs` matches them up), check a bit-for-bit repeat, and time
     the kernel, the plain version and the library call (if any) with CUDA
-    events."""
+    events. `library_computes` says what the library call computes where
+    that is not the kernel's own output."""
     from repro_torch.kernels import LAUNCHES
 
     as_tuple = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
@@ -576,7 +612,8 @@ def _check_and_time(torch, name: str, kern, plain, library, shape, nbytes: float
     emit({"phase": "kernel", "name": name, "shape": shape, "max_abs_err": err,
           "tolerance": f"max|kernel-plain| <= {rel}*max|plain| + {TOL_ABS} (largest: {limit})",
           "bitwise_repeat": True, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-          "bound_by": bound_by, "library_ms": library_ms, "card": card_line,
+          "bound_by": bound_by, "library_ms": library_ms,
+          "library_computes": library_computes or "the kernel's output", "card": card_line,
           "launches": dict(LAUNCHES)})
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
@@ -675,6 +712,146 @@ def _partial_pairs(torch, name, out, ref):
     return [(m[live], m_ref[live]), (l, l_ref), (acc, acc_ref)]
 
 
+def windowed_kernel_phase(torch, card_line: str) -> dict:
+    """The banded, block-sparse and chunked-prefill kernels against their
+    plain versions at StarCoder2-3B's attention shapes (24 query heads over 2
+    kv heads of 128, window 4096, float32): a prefill at SC_SEQ tokens and a
+    tail (256 rows at positions 5000.. over SC_SEQ keys), block-sparse at
+    2048 tokens with a seeded random mask of about half the blocks, chunked
+    with chunk SC_CHUNK; the paged decode kernel at StarCoder2's decode shape
+    (G = 12, two slots past the window, their dead pages retired). Then the
+    identities the kernels claim, each bit for bit: local == flash,
+    block-sparse with an all-ones mask == flash and with the band's own mask
+    == local, chunked + merge == flash. Returns the figures of the main
+    path's shapes for the kernels line."""
+    from repro_torch.kernels import chunked_prefill, local_attention, ops, paged_attention
+    from repro_torch.models.attention import AttnSpec
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    Hq, Hkv, D, W = 24, 2, 128, 4096
+    spec = AttnSpec(True, W, 0.0)
+    results = {}
+
+    def inputs(Sq, Skv, off):
+        q = torch.randn(1, Sq, Hq, D, generator=g, device=dev)
+        k = torch.randn(1, Skv, Hkv, D, generator=g, device=dev)
+        v = torch.randn(1, Skv, Hkv, D, generator=g, device=dev)
+        return (q, k, v, torch.arange(off, off + Sq, dtype=torch.int32, device=dev),
+                torch.arange(Skv, dtype=torch.int32, device=dev))
+
+    def band(qpos, kpos, window):
+        m = qpos[:, None] >= kpos[None, :]
+        return m & (qpos[:, None] - kpos[None, :] < window) if window else m
+
+    def sdpa(a, mask):
+        qf, kf, vf = (x.transpose(1, 2) for x in a[:3])
+        return lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask, enable_gqa=True)
+
+    def attn_bytes(a, out_floats):
+        q, k, v, qpos, kpos = a
+        return 4.0 * (q.numel() + k.numel() + v.numel() + out_floats + qpos.numel() + kpos.numel())
+
+    prefill = inputs(SC_SEQ, SC_SEQ, 0)
+    tail = inputs(256, SC_SEQ, 5000)
+    for name, a in (("local_attention", prefill), ("local_attention/tail", tail)):
+        vis = band(a[3], a[4], W)
+        results[name] = _check_and_time(
+            torch, name, lambda a=a: ops.local_attention(*a, spec),
+            lambda a=a: ops.local_attention_ref(*a, spec), sdpa(a, vis),
+            [1, a[0].shape[1], a[1].shape[1], Hq, Hkv, D, int(a[3][0]), W, "float32"],
+            attn_bytes(a, a[0].numel()), 4.0 * D * Hq * float(vis.sum()), FP32_OPS_PER_S,
+            card_line, library_computes="SDPA, float32, the boolean band mask")
+    for name, a in (("chunked_prefill", prefill), ("chunked_prefill/tail", tail)):
+        vis = band(a[3], a[4], W)
+        Sq = a[0].shape[1]
+        results[name] = _check_and_time(
+            torch, name, lambda a=a: ops.chunked_prefill_partials(*a, spec, SC_CHUNK),
+            lambda a=a: ops.chunked_prefill_partials_ref(*a, spec, SC_CHUNK), sdpa(a, vis),
+            [1, Sq, a[1].shape[1], Hq, Hkv, D, int(a[3][0]), W, SC_CHUNK, "float32"],
+            attn_bytes(a, Hq * Sq * (D + 2)), 4.0 * D * Hq * float(vis.sum()), FP32_OPS_PER_S,
+            card_line, library_computes="SDPA of the whole op's output (partials and merge), "
+                                        "float32, the boolean band mask: no one call gives the "
+                                        "partials")
+    sparse = inputs(2048, 2048, 0)
+    nq, nk = ops.attn_block_mask_shape(2048, 2048)
+    bq, bk = 2048 // nq, 2048 // nk
+    mask = (torch.rand(nq, nk, generator=g, device=dev) < 0.5).int()
+    cells = mask.bool().repeat_interleave(bq, 0).repeat_interleave(bk, 1)
+    vis = band(sparse[3], sparse[4], W) & cells
+    results["block_sparse_attention"] = _check_and_time(
+        torch, "block_sparse_attention",
+        lambda: ops.block_sparse_attention(*sparse, mask, spec),
+        lambda: ops.block_sparse_attention_ref(*sparse, mask, spec), sdpa(sparse, vis),
+        [1, sparse[0].shape[1], sparse[1].shape[1], Hq, Hkv, D, 0, W, [nq, nk],
+         int(mask.sum()), "float32"],
+        attn_bytes(sparse, sparse[0].numel()) + 4.0 * nq * nk,
+        4.0 * D * Hq * float(vis.sum()), FP32_OPS_PER_S, card_line,
+        library_computes="SDPA, float32, the block mask expanded to elements and the causal "
+                         "mask (a row with no enabled key gives NaN there, 0 in the kernel)")
+
+    # the decode kernel at StarCoder2's decode shape: two slots 31 tokens into
+    # prompts of 5000 and 6000, whole pages past the window retired
+    n_table, P = -(-(max(SC_LENGTHS) + SC_MAX_NEW) // SC_PAGE), SC_PAGE
+    n_phys = 1 + 2 * n_table
+    q = torch.randn(2, Hkv, Hq // Hkv, D, generator=g, device=dev)
+    k_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev)
+    v_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev)
+    ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
+    table = torch.zeros(2, n_table, dtype=torch.int32, device=dev)
+    pos = torch.tensor([SC_LENGTHS[0] + SC_MAX_NEW - 1, SC_LENGTHS[1] + SC_MAX_NEW - 1],
+                       dtype=torch.int32, device=dev)
+    for b in range(2):
+        need = -(-(SC_LENGTHS[b] + SC_MAX_NEW) // P)
+        table[b, :need] = ids[b * n_table:b * n_table + need]
+        table[b, :(int(pos[b]) - W) // P] = 0  # retired
+    kpos0 = torch.arange(n_table, device=dev) * P
+    live = (table != 0) & (kpos0[None] <= pos[:, None]) & (kpos0[None] + P - 1 > pos[:, None] - W)
+    n_live = float(live.sum())
+    G = Hq // Hkv
+    a = (q, k_pages, v_pages, table, pos)
+    results["paged_attention/starcoder2"] = _check_and_time(
+        torch, "paged_attention/starcoder2",
+        lambda: paged_attention.paged_attention_partials(*a, window=W),
+        lambda: paged_attention.paged_attention_partials_reference(*a, window=W), None,
+        [2, Hkv, G, D, P, n_table, n_phys, W],
+        4.0 * (q.numel() + 2 * n_live * P * Hkv * D + table.numel() + 2)
+        + 4.0 * 2 * Hkv * n_table * G * (D + 2), 4.0 * G * D * P * n_live * Hkv,
+        FP32_OPS_PER_S, card_line,
+        pairs=lambda out, ref: _partial_pairs(torch, "paged_attention/starcoder2", out, ref))
+
+    # the identities, bit for bit
+    q = prefill[0]
+    flash = ops.flash_attention(*prefill, spec)
+    spec512 = AttnSpec(True, 512, 0.0)
+    band_mask = torch.from_numpy(local_attention.band_live(
+        sparse[3].cpu().reshape(nq, bq), sparse[4].cpu().reshape(nk, bk), causal=True,
+        window=512)).to(device=dev, dtype=torch.int32)
+    local512 = ops.local_attention(*sparse, spec512)
+    same = {
+        "local == flash (8192, window 4096)": torch.equal(ops.local_attention(*prefill, spec),
+                                                          flash),
+        "chunked + merge == flash (8192, chunk 2048)": torch.equal(ops.chunked_prefill_finish(
+            *ops.chunked_prefill_partials(*prefill, spec, SC_CHUNK), q), flash),
+        "chunked + merge == flash (8192, chunk 1000 -> 1024)": torch.equal(
+            ops.chunked_prefill_finish(*ops.chunked_prefill_partials(*prefill, spec, 1000), q),
+            flash),
+        "block-sparse all-ones == flash (2048)": torch.equal(
+            ops.block_sparse_attention(*sparse, torch.ones_like(mask), spec),
+            ops.flash_attention(*sparse, spec)),
+        "block-sparse band mask == local (2048, window 512)": torch.equal(
+            ops.block_sparse_attention(*sparse, band_mask, spec512), local512),
+        "local == flash (2048, window 512)": torch.equal(
+            local512, ops.flash_attention(*sparse, spec512)),
+    }
+    emit({"phase": "identities", "bitwise_equal": same,
+          "chunk_eff": chunked_prefill.chunk_blocks(SC_CHUNK, chunked_prefill.KV_TILE)})
+    if not all(same.values()):
+        fail(f"a kernel identity does not hold bit for bit: {same}")
+    return results
+
+
 def _first_divergence(a, b):
     """Index of the first token where two streams differ, or None."""
     return next((i for i, (x, y) in enumerate(zip(a.out, b.out)) if x != y), None)
@@ -722,17 +899,6 @@ def serving_phase(torch, card_line: str) -> tuple[dict, dict]:
 
     timings: list = []
 
-    def timed(kind, fn):
-        def call(params, *args, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(params, *args, **kw)
-            torch.cuda.synchronize()
-            batch = args[1] if kind == "decode" else args[0]  # decode_step(params, cache, batch)
-            timings.append((kind, int(batch["tokens"].shape[1]), time.perf_counter() - t))
-            return out
-        return call
-
     def serve(backend, reqs, batch_size=SERVE_BATCH):
         eng = ServeEngine(model, params, backend=backend, device=dev,
                           config=ServeConfig(batch_size=batch_size, max_len=SERVE_MAX_LEN,
@@ -742,10 +908,7 @@ def serving_phase(torch, card_line: str) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         return done, dict(eng.stats), time.perf_counter() - t
 
-    plain = (model.prefill, model.prefill_tail, model.decode_step)
-    model.prefill = timed("prefill", plain[0])
-    model.prefill_tail = timed("tail", plain[1])
-    model.decode_step = timed("decode", plain[2])
+    undo = _time_model_calls(torch, model, timings)
     for backend in ("cuda", "reference"):  # warm-up: cuBLAS, the kernels' first load
         serve(backend, [Request(uid=-1, prompt=prompts[1], max_new=2)], batch_size=1)
     runs = {}
@@ -756,48 +919,17 @@ def serving_phase(torch, card_line: str) -> tuple[dict, dict]:
         done, stats, wall = serve(backend, [Request(uid=i, prompt=p, max_new=SERVE_MAX_NEW)
                                             for i, p in enumerate(prompts)])
         launches = dict(LAUNCHES)
-        prefill_ms: dict = {}
-        for kind, width, sec in timings:
-            if kind != "decode":
-                prefill_ms.setdefault(f"{kind}/{width}", []).append(sec * 1e3)
-        decode_s = [sec for kind, _, sec in timings if kind == "decode"]
-        n_tok = sum(len(q.out) for q in done)
         runs[backend] = (done, stats, launches)
-        emit({"phase": "serve", "backend": backend, "requests": len(done), "tokens": n_tok,
-              "wall_s": wall, "tokens_per_s": n_tok / wall, "stats": stats,
-              "prefill_ms_by_width": prefill_ms,
-              "decode_ms_per_round_mean": 1e3 * sum(decode_s) / len(decode_s),
-              "decode_ms_per_round_min": 1e3 * min(decode_s),
-              "decode_rounds": len(decode_s),
-              "decode_tokens_per_s": stats["slot_rounds"] / sum(decode_s),
-              "launches": launches if backend == "cuda" else None,
-              "finish_order": [q.uid for q in done], "card": card_line})
-    model.prefill, model.prefill_tail, model.decode_step = plain
+        emit({"phase": "serve", "arch": cfg.name, "backend": backend,
+              **_serve_figures(timings, stats, done, wall),
+              "launches": launches if backend == "cuda" else None, "card": card_line})
+    undo()
 
     (done_c, stats_c, launches), (done_r, stats_r, _) = runs["cuda"], runs["reference"]
     # the schedule depends on the prompts and budgets only
     if [q.uid for q in done_c] != [q.uid for q in done_r] or stats_c != stats_r:
         fail(f"serve: the backends scheduled differently: {stats_c} vs {stats_r}")
-    worst, parted = 0.0, []
-    by_uid = {q.uid: q for q in done_r}
-    for q in done_c:
-        p = by_uid[q.uid]
-        if len(q.out) != SERVE_MAX_NEW or len(p.out) != SERVE_MAX_NEW:
-            fail(f"serve: request {q.uid} gave {len(q.out)} / {len(p.out)} tokens")
-        i = _first_divergence(q, p)
-        upto = SERVE_MAX_NEW if i is None else i + 1
-        for a, b in zip(q.logits[:upto], p.logits[:upto]):
-            if not np.isfinite(a).all():
-                fail(f"serve: request {q.uid}: non-finite logits")
-            worst = max(worst, float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))))
-        if i is not None:
-            top2 = np.sort(p.logits[i])[-2:]
-            margin = float(top2[1] - top2[0])
-            parted.append({"uid": q.uid, "token": i, "top2_margin": margin})
-            if margin > TIE_MARGIN:
-                fail(f"serve: request {q.uid} parts at token {i} with a top-2 margin {margin}")
-    if worst > LOGIT_TOL:
-        fail(f"serve: cuda vs reference logits differ by {worst} > {LOGIT_TOL} (relative to 1+|b|)")
+    worst, parted = _compare_streams(np, "serve", done_c, done_r, SERVE_MAX_NEW)
     want = {"flash_attention": cfg.n_layers * len(prompts),
             "paged_attention": cfg.n_layers * stats_c["decode_rounds"]}
     got = {k: launches[k] for k in want}
@@ -824,6 +956,272 @@ def serving_phase(torch, card_line: str) -> tuple[dict, dict]:
         Request(uid=i, prompt=p, max_new=SERVE_MAX_NEW) for i, p in enumerate(prompts)]),
         stats_c["decode_rounds"])
     return launches
+
+
+def block_sparse_phase(torch, card_line: str) -> dict:
+    """The block-sparse entry point, `Backend.block_sparse_attention`, as a
+    caller with its own block mask calls it (no model does), at StarCoder2's
+    head shapes (24 query heads over 2 kv heads of 128) over a 2048-token
+    prompt, with BLOCK_SPARSE_CALLS masks at `attn_block_mask_shape`: the
+    band of a 512 window, that band plus the first key block (attention
+    sinks), every other column of the causal triangle, and a seeded random
+    half. On backend cuda (launch counts set to 0 just before, read just
+    after) and on reference: within the tolerance, one launch a call.
+    Returns the cuda run's launches."""
+    from repro_torch.core.backend import Backend
+    from repro_torch.kernels import LAUNCHES, local_attention, ops, reset_launches
+    from repro_torch.models.attention import AttnSpec
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    S, Hq, Hkv, D = 2048, 24, 2, 128
+    q = torch.randn(1, S, Hq, D, generator=g, device=dev)
+    k = torch.randn(1, S, Hkv, D, generator=g, device=dev)
+    v = torch.randn(1, S, Hkv, D, generator=g, device=dev)
+    pos = torch.arange(S, device=dev)
+    nq, nk = ops.attn_block_mask_shape(S, S)
+    blocks = pos.reshape(nq, -1)
+    band = torch.from_numpy(local_attention.band_live(blocks.cpu(), blocks.cpu(), causal=True,
+                                                      window=512)).to(dev)
+    sinks = band.clone()
+    sinks[:, 0] = True
+    tri = torch.ones(nq, nk, dtype=torch.bool, device=dev).tril()
+    strided = tri & (torch.arange(nk, device=dev)[None] % 2 == 0)
+    strided |= torch.eye(nq, dtype=torch.bool, device=dev)
+    random = (torch.rand(nq, nk, generator=g, device=dev) < 0.5) | torch.eye(
+        nq, dtype=torch.bool, device=dev)
+    masks = [m.int() for m in (band, sinks, strided, random)][:BLOCK_SPARSE_CALLS]
+    spec = AttnSpec()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [Backend("cuda").block_sparse_attention(q, k, v, pos, pos, m, spec) for m in masks]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    worst = 0.0
+    for out, m in zip(outs, masks):
+        ref = Backend("reference").block_sparse_attention(q, k, v, pos, pos, m, spec)
+        err = float((out - ref).abs().max())
+        limit = TOL_REL * float(ref.abs().max()) + TOL_ABS
+        if not (bool(torch.isfinite(out).all()) and err <= limit):
+            fail(f"block-sparse path: max|cuda - reference| = {err} > {limit}")
+        worst = max(worst, err)
+    emit({"phase": "block_sparse_path", "calls": len(masks), "mask_shape": [nq, nk],
+          "enabled_blocks": [int(m.sum()) for m in masks], "max_abs_err": worst,
+          "wall_s": wall, "launches": launches, "card": card_line})
+    if launches["block_sparse_attention"] != len(masks):
+        fail(f"block-sparse path: {launches['block_sparse_attention']} launches, "
+             f"{len(masks)} calls")
+    return launches
+
+
+def _time_model_calls(torch, model, timings: list):
+    """Wrap model.prefill, prefill_tail and decode_step so that each call
+    appends (kind, token width, seconds) to `timings`, timed on the host
+    with a device sync before and after. Returns a function that undoes
+    it."""
+    plain = (model.prefill, model.prefill_tail, model.decode_step)
+
+    def timed(kind, fn):
+        def call(params, *args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(params, *args, **kw)
+            torch.cuda.synchronize()
+            batch = args[1] if kind == "decode" else args[0]  # decode_step(params, cache, batch)
+            timings.append((kind, int(batch["tokens"].shape[1]), time.perf_counter() - t))
+            return out
+        return call
+
+    model.prefill = timed("prefill", plain[0])
+    model.prefill_tail = timed("tail", plain[1])
+    model.decode_step = timed("decode", plain[2])
+
+    def undo():
+        model.prefill, model.prefill_tail, model.decode_step = plain
+    return undo
+
+
+def _serve_figures(timings: list, stats: dict, done: list, wall: float) -> dict:
+    """Prefill ms by kind and width, decode ms a round, tokens per second."""
+    prefill_ms: dict = {}
+    for kind, width, sec in timings:
+        if kind != "decode":
+            prefill_ms.setdefault(f"{kind}/{width}", []).append(sec * 1e3)
+    decode_s = [sec for kind, _, sec in timings if kind == "decode"]
+    n_tok = sum(len(q.out) for q in done)
+    return {"requests": len(done), "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "stats": stats, "prefill_ms_by_width": prefill_ms,
+            "decode_ms_per_round_mean": 1e3 * sum(decode_s) / len(decode_s),
+            "decode_ms_per_round_min": 1e3 * min(decode_s), "decode_rounds": len(decode_s),
+            "decode_tokens_per_s": stats["slot_rounds"] / sum(decode_s),
+            "finish_order": [q.uid for q in done]}
+
+
+def _compare_streams(np, what: str, done, done_ref, max_new: int) -> tuple[float, list]:
+    """Tokens of two runs equal, or parting only at a top-2 tie within
+    TIE_MARGIN; logits within LOGIT_TOL up to the first parting. Returns
+    (the largest relative logit difference, the partings)."""
+    worst, parted = 0.0, []
+    by_uid = {q.uid: q for q in done_ref}
+    for q in done:
+        p = by_uid[q.uid]
+        if len(q.out) != max_new or len(p.out) != max_new:
+            fail(f"{what}: request {q.uid} gave {len(q.out)} / {len(p.out)} tokens")
+        i = _first_divergence(q, p)
+        upto = max_new if i is None else i + 1
+        for a, b in zip(q.logits[:upto], p.logits[:upto]):
+            if not np.isfinite(a).all():
+                fail(f"{what}: request {q.uid}: non-finite logits")
+            worst = max(worst, float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))))
+        if i is not None:
+            top2 = np.sort(p.logits[i])[-2:]
+            margin = float(top2[1] - top2[0])
+            parted.append({"uid": q.uid, "token": i, "top2_margin": margin})
+            if margin > TIE_MARGIN:
+                fail(f"{what}: request {q.uid} parts at token {i} with a top-2 margin {margin}")
+    if worst > LOGIT_TOL:
+        fail(f"{what}: logits differ by {worst} > {LOGIT_TOL} (relative to 1+|b|)")
+    return worst, parted
+
+
+def starcoder_phase(torch, card_line: str) -> dict:
+    """The sliding-window serving path at StarCoder2-3B's full width (30
+    layers, d_model 3072, 24 query heads over 2 kv heads of 128, window
+    4096), float32, random weights from SEED: ServeEngine(batch_size=2,
+    page_size=8) at repro's other defaults (prefix sharing and page
+    retirement on, max_len from the requests) serves SC_LENGTHS (two prompts
+    past the window, bucket 8192; two of about 300 sharing a 128-token
+    prefix, one of them a prefix hit), SC_MAX_NEW greedy tokens each: on
+    backend cuda unchunked (every prefill through local_attention), on cuda
+    with prefill_chunk SC_CHUNK (the long prefills through chunked_prefill),
+    and on reference. The launch counts, decode rounds and retired pages are
+    predicted before the runs and checked after; tokens and logits are held
+    as in the OLMo-1B phase, and the counters must be equal. Then the
+    unchunked cuda run once more under torch.profiler. Returns the launches
+    of the two cuda runs."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.chunked_prefill import KV_TILE, chunk_blocks
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServeConfig, ServeEngine
+    from repro_torch.serving.engine import bucket_len
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the OLMo-1B phase's parameters are gone
+    dev = torch.device("cuda")
+    cfg = get_config("starcoder2-3b")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    emit({"phase": "serve_model", "arch": cfg.name, "params": n_params,
+          "param_bytes": 4 * n_params, "init_s": time.perf_counter() - t0,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "window": cfg.sliding_window, "padded_vocab": cfg.padded_vocab})
+    r = np.random.default_rng(SEED + 1)
+    shared = r.integers(0, cfg.vocab_size, SC_PREFIX)
+    prompts = []
+    for i, n in enumerate(SC_LENGTHS):
+        p = r.integers(0, cfg.vocab_size, n)
+        if i in SC_SHARED:
+            p[:SC_PREFIX] = shared
+        prompts.append(p.astype(np.int32))
+    max_len = max(SC_LENGTHS) + SC_MAX_NEW
+    W, Ln = cfg.sliding_window, cfg.n_layers
+
+    def serve(backend, chunk, reqs, batch_size=SC_BATCH):
+        eng = ServeEngine(model, params, backend=backend, device=dev,
+                          config=ServeConfig(batch_size=batch_size, max_len=max_len,
+                                             page_size=SC_PAGE, trace_logits=True,
+                                             prefill_chunk=chunk))
+        t = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        return done, dict(eng.stats), time.perf_counter() - t
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_new=SC_MAX_NEW) for i, p in enumerate(prompts)]
+
+    # predicted before the runs: the slots take the requests in pairs, each
+    # pair decoding SC_MAX_NEW - 1 rounds; both a solo prefill and a tail
+    # prefill attend over the prompt's bucket; a slot retires the pages that
+    # slid out of the window after every round but its last
+    rounds = (len(prompts) // SC_BATCH) * (SC_MAX_NEW - 1)
+    kv = [bucket_len(n) for n in SC_LENGTHS]
+    retired = sum(max(0, (n + SC_MAX_NEW - 2 - W + 1) // SC_PAGE) for n in SC_LENGTHS)
+
+    def predicted(chunk):
+        chunked = [w for w in kv if chunk and w > chunk]
+        return {"local_attention": Ln * (len(kv) - len(chunked)),
+                "chunked_prefill": Ln * sum(-(-w // chunk_blocks(chunk, KV_TILE))
+                                            for w in chunked),
+                "flash_attention": 0, "paged_attention": Ln * rounds}
+
+    emit({"phase": "starcoder_prediction", "decode_rounds": rounds, "pages_retired": retired,
+          "prefix_hits": 1, "launches_unchunked": predicted(0),
+          "launches_chunked": predicted(SC_CHUNK)})
+    # warm-up: cuBLAS at the model's widths and the kernels' first load
+    for backend, chunk in (("cuda", 0), ("cuda", SC_CHUNK), ("reference", 0)):
+        serve(backend, chunk, [Request(uid=-1, prompt=prompts[0], max_new=1)], batch_size=1)
+    timings: list = []
+    undo = _time_model_calls(torch, model, timings)
+    runs = {}
+    for backend, chunk in (("cuda", 0), ("cuda", SC_CHUNK), ("reference", 0)):
+        timings.clear()
+        reset_launches()
+        done, stats, wall = serve(backend, chunk, requests())
+        launches = dict(LAUNCHES)
+        runs[backend, chunk] = (done, stats, launches)
+        emit({"phase": "serve", "arch": cfg.name, "backend": backend, "prefill_chunk": chunk,
+              **_serve_figures(timings, stats, done, wall),
+              "launches": launches if backend == "cuda" else None, "card": card_line})
+    undo()
+
+    done_r, stats_r, _ = runs["reference", 0]
+    for (backend, chunk), (done, stats, launches) in runs.items():
+        if [q.uid for q in done] != [q.uid for q in done_r] or stats != stats_r:
+            fail(f"starcoder2 serve: {backend} chunk {chunk} scheduled differently: {stats} vs "
+                 f"{stats_r}")
+        if backend == "cuda":
+            got = {k: launches[k] for k in ("local_attention", "chunked_prefill",
+                                            "flash_attention", "paged_attention")}
+            if got != predicted(chunk):
+                fail(f"starcoder2 serve: cuda chunk {chunk} launched {got}, predicted "
+                     f"{predicted(chunk)}")
+    if (stats_r["decode_rounds"], stats_r["pages_retired"], stats_r["prefix_hits"]) != \
+            (rounds, retired, 1):
+        fail(f"starcoder2 serve: {stats_r}, predicted {rounds} rounds, {retired} pages retired, "
+             "1 prefix hit")
+    worst, parted = _compare_streams(np, "starcoder2 serve, cuda vs reference",
+                                     runs["cuda", 0][0], done_r, SC_MAX_NEW)
+    worst_c, parted_c = _compare_streams(np, "starcoder2 serve, cuda chunked vs reference",
+                                         runs["cuda", SC_CHUNK][0], done_r, SC_MAX_NEW)
+    bitwise = all(a.out == b.out and all(np.array_equal(x, y) for x, y in zip(a.logits, b.logits))
+                  for a, b in zip(runs["cuda", 0][0], runs["cuda", SC_CHUNK][0]))
+    emit({"phase": "serve_compare", "arch": cfg.name, "same_tokens": not parted,
+          "parted": parted, "max_logit_diff_rel": worst,
+          "chunked_same_tokens": not parted_c, "chunked_parted": parted_c,
+          "chunked_max_logit_diff_rel": worst_c, "chunked_vs_unchunked_bitwise": bitwise,
+          "logit_tol": LOGIT_TOL, "tie_margin": TIE_MARGIN, "pages_retired":
+          stats_r["pages_retired"], "prefix_hits": stats_r["prefix_hits"],
+          "decode_rounds": stats_r["decode_rounds"],
+          "launches": {f"{b}/{c}": {k: v for k, v in lc.items() if v}
+                       for (b, c), (_, _, lc) in runs.items() if b == "cuda"}})
+    prof = _device_profile(torch, lambda: serve("cuda", 0, requests()), top=15)
+    emit({"phase": "serve_trace", "what": "4 requests, StarCoder2-3B full width, backend cuda",
+          "wall_s_traced": prof["wall_s"], "device_busy_s": prof["busy_us"] * 1e-6,
+          "device_idle_share": prof["idle_share"], "device_kernels": prof["kernels"],
+          "decode_rounds": rounds, "blocking_runtime_calls": prof["blocking"],
+          "top_host_ops_self_us": prof["top_host_ops"],
+          "top_device_kernels_us": prof["top_device_kernels"], "card": card_line})
+    return {"unchunked": runs["cuda", 0][2], "chunked": runs["cuda", SC_CHUNK][2]}
 
 
 def serve_trace(torch, card_line: str, serve_once, rounds: int) -> None:
@@ -883,16 +1281,26 @@ def main() -> None:
     build_phase()
     kern = kernel_phase(torch, card_line)
     kern.update(attention_kernel_phase(torch, card_line))
+    kern.update(windowed_kernel_phase(torch, card_line))
     serve_launches = serving_phase(torch, card_line)
+    sparse_launches = block_sparse_phase(torch, card_line)
+    sc_launches = starcoder_phase(torch, card_line)
     determinism_phase(torch)
     ds, cfg = dataset_phase(torch)
     loop_phase(torch, card_line, ds, cfg, "retrain")
     launches = loop_phase(torch, card_line, ds, cfg, "deltagrad")
     checkpoint_phase(torch, ds, cfg)
     trace_phase(torch, card_line, ds, cfg)
-    launches.update({k: serve_launches[k] for k in REPLACES if k not in CHEF_KERNELS})
+    # each kernel's launches from the run of the path it serves
+    launches.update({"flash_attention": serve_launches["flash_attention"],
+                     "paged_attention": serve_launches["paged_attention"],
+                     "block_sparse_attention": sparse_launches["block_sparse_attention"],
+                     "local_attention": sc_launches["unchunked"]["local_attention"],
+                     "chunked_prefill": sc_launches["chunked"]["chunked_prefill"]})
+    from repro_torch.kernels.build import KERNELS
+
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
+        {"name": name, "route": "cuda", "source": f"{CSRC}/{KERNELS[name]}.cu",
          "replaces": REPLACES[name], "launches": launches[name], **kern[name]}
         for name in REPLACES]})
     print(card(), flush=True)

@@ -90,9 +90,9 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 # archs `repro` registers that the port cannot run yet (ROADMAP.md queue 1,
-# items 8-9: MoE, recurrent, SSM, enc-dec, sliding-window, M-RoPE)
+# items 8-9: MoE, recurrent, SSM, enc-dec, M-RoPE)
 NOT_PORTED = ("granite-8b", "mamba2-370m", "mixtral-8x22b", "qwen2-72b", "qwen2-vl-72b",
-              "qwen3-moe-30b-a3b", "recurrentgemma-9b", "starcoder2-3b", "whisper-tiny")
+              "qwen3-moe-30b-a3b", "recurrentgemma-9b", "whisper-tiny")
 
 
 def register(name: str):

@@ -16,7 +16,18 @@ explicit override) and passed down, carries the loop's ops:
 Serving ops, in the model layout (q [B,S,Hq,D]; k, v [B,S,Hkv,D]):
 
   flash_attention(q, k, v, qpos, kpos, spec)  -> [B,Sq,Hq,D]  every prefill
-                                                 and tail prefill
+                                                 and tail prefill of a
+                                                 full-attention arch
+  local_attention(q, k, v, qpos, kpos, spec)  -> [B,Sq,Hq,D]  every prefill
+                                                 of a windowed arch (dead
+                                                 band blocks skipped)
+  chunked_prefill(q, k, v, qpos, kpos, spec, chunk)
+                                              -> [B,Sq,Hq,D]  a prefill with
+                                                 ServeConfig.prefill_chunk
+                                                 > 0 and Skv > chunk
+  block_sparse_attention(q, k, v, qpos, kpos, block_mask, spec)
+                                              -> [B,Sq,Hq,D]  a caller's
+                                                 [nq, nk] block mask
   paged_decode_attention(q, k_pages, v_pages, pages, pos, spec)
                                               -> [B,1,Hq,D]   every decode step
 
@@ -115,6 +126,38 @@ class Backend:
         if self.name == "reference":
             return ops.flash_attention_ref(q, k, v, qpos, kpos, spec)
         return ops.flash_attention(q, k, v, qpos, kpos, spec)
+
+    def chunked_prefill(self, q, k, v, qpos, kpos, spec, chunk: int) -> torch.Tensor:
+        """Chunked prefill attention: `flash_attention`'s signature plus the
+        KV chunk; its result for any chunk, with O(Sq * chunk) live scores.
+        The partials' `combine_pages` merge is the same function on both
+        backends."""
+        from repro_torch.kernels import ops
+
+        if self.name == "reference":
+            return ops.chunked_prefill_ref(q, k, v, qpos, kpos, spec, chunk)
+        return ops.chunked_prefill(q, k, v, qpos, kpos, spec, chunk)
+
+    def local_attention(self, q, k, v, qpos, kpos, spec) -> torch.Tensor:
+        """Banded (sliding-window) prefill attention: `flash_attention` with
+        the KV blocks outside the causal / window band skipped, so O(Sq *
+        window) live work; the same result."""
+        from repro_torch.kernels import ops
+
+        if self.name == "reference":
+            return ops.local_attention_ref(q, k, v, qpos, kpos, spec)
+        return ops.local_attention(q, k, v, qpos, kpos, spec)
+
+    def block_sparse_attention(self, q, k, v, qpos, kpos, block_mask, spec) -> torch.Tensor:
+        """Block-sparse prefill attention: KV blocks with a 0 in `block_mask`
+        ([nq, nk] at `ops.attn_block_mask_shape`) skipped; causal / window
+        still mask elements inside enabled blocks. An all-ones mask gives
+        `flash_attention`."""
+        from repro_torch.kernels import ops
+
+        if self.name == "reference":
+            return ops.block_sparse_attention_ref(q, k, v, qpos, kpos, block_mask, spec)
+        return ops.block_sparse_attention(q, k, v, qpos, kpos, block_mask, spec)
 
     def paged_decode_attention(self, q, k_pages, v_pages, pages, pos, spec) -> torch.Tensor:
         """One-token attention over the paged cache: q [B,1,Hq,D]; pools

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for Hopper (sm_90a): the CHEF cleaning loop's
-and the paged serving path's.
+and the serving paths'.
 
   lr_grad            Eq. 1 batch gradient (validation gradient)
   lr_hvp             H(w)v, the CG inner loop
@@ -11,12 +11,18 @@ and the paged serving path's.
   flash_attention    GQA flash attention, every prefill and tail prefill
   paged_attention    per-page decode partials through a block table, every
                      decode step (merged by `combine_pages`)
+  local_attention    banded flash attention (dead band tiles skipped), every
+                     prefill of a sliding-window arch; its module also holds
+                     block_sparse_attention (a caller's block mask)
+  chunked_prefill    the flash fold over one KV chunk, carry in and out,
+                     every prefill with prefill_chunk > 0 and a longer span
 
-`ops` holds the model-layout adapters of the two attention kernels.
+`ops` holds the model-layout adapters of the attention kernels.
 
 Each module holds the kernel's wrapper, its plain PyTorch version and a note
 on what it replaces and what bounds it. `build` compiles `csrc/` with nvcc;
-`common.LAUNCHES` counts each kernel's launches.
+`common.LAUNCHES` counts each kernel's launches (`build.KERNELS` names each
+kernel's source).
 """
 from repro_torch.kernels.common import LAUNCHES, reset_launches
 

@@ -20,8 +20,14 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parent / "_build"
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's nvcc where none is on PATH
-SOURCES = ("lr_grad", "lr_hvp", "minibatch_grad", "infl_scores", "replay_correction",
-           "flash_attention", "paged_attention")
+# each kernel (a launch count and a C entry point) -> the source it is built
+# from: `local_attention.cu` holds both banded kernels
+KERNELS = {"lr_grad": "lr_grad", "lr_hvp": "lr_hvp", "minibatch_grad": "minibatch_grad",
+           "infl_scores": "infl_scores", "replay_correction": "replay_correction",
+           "flash_attention": "flash_attention", "paged_attention": "paged_attention",
+           "local_attention": "local_attention", "block_sparse_attention": "local_attention",
+           "chunked_prefill": "chunked_prefill"}
+SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -83,9 +89,11 @@ def build_all(names=SOURCES) -> dict[str, str]:
     return {name: (out_dir / f"lib{name}.log").read_text() for name in names}
 
 
-def entry(lib: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point `symbol` of `lib<lib>.so` (built at first use), with
-    its argument types declared and an `int` (a cudaError_t) result."""
+def entry(kernel: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` of kernel `kernel`'s library (built at first
+    use), with its argument types declared and an `int` (a cudaError_t)
+    result."""
+    lib = KERNELS[kernel]
     if symbol not in _ENTRIES:
         if lib not in _LIBS:
             build_all((lib,))
@@ -97,9 +105,9 @@ def entry(lib: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     return _ENTRIES[symbol]
 
 
-def error_string(lib: str, err: int) -> str:
-    """CUDA's message for the error code `err`, from `lib<lib>.so`."""
-    fn = _LIBS[lib].chef_error_string
+def error_string(kernel: str, err: int) -> str:
+    """CUDA's message for the error code `err`, from kernel `kernel`'s library."""
+    fn = _LIBS[KERNELS[kernel]].chef_error_string
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(err).decode()

@@ -19,7 +19,7 @@ BLOCKS_PER_SM = 4  # column-pass blocks the chunking aims at for each SM
 
 # Launches of each kernel in this process: a wrapper adds one where it
 # launches its kernel and nowhere else.
-LAUNCHES = {name: 0 for name in build.SOURCES}
+LAUNCHES = {name: 0 for name in build.KERNELS}
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int

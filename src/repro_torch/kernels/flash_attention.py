@@ -25,23 +25,25 @@ from repro_torch.kernels import build, common
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # csrc/flash_attention.cu: the largest DMAX instance
 
-_ARGTYPES = ([common.PTR] * 6 + [common.INT] * 6 + [common.INT64] * 12 + [common.INT] * 2
+# chef_flash_attention's (and chef_local_attention's) argument types
+ARGTYPES = ([common.PTR] * 6 + [common.INT] * 6 + [common.INT64] * 12 + [common.INT] * 2
              + [common.FLOAT] * 3 + [common.INT, common.PTR])
 
 
 def _kv_block_step(carry, q, k, v, qp, kp, *, scale: float, causal: bool, window: int,
                    softcap: float):
     """One online-softmax KV step: q [..., BQ, D]; k, v [..., BK, D] (the
-    leading dims broadcast) -> the new (m, l, acc)."""
+    leading dims broadcast); qp [..., BQ] (one q block, or several stacked
+    in front) and kp [BK] positions -> the new (m, l, acc)."""
     m_prev, l_prev, acc_prev = carry
     s = (q @ k.transpose(-1, -2)) * scale  # [..., BQ, BK]
     if softcap:
         s = softcap * torch.tanh(s * (1.0 / softcap))
-    mask = torch.ones(qp.shape[0], kp.shape[0], dtype=torch.bool, device=q.device)
+    mask = torch.ones(qp.shape + kp.shape, dtype=torch.bool, device=q.device)
     if causal:
-        mask &= qp[:, None] >= kp[None, :]
+        mask &= qp[..., :, None] >= kp[None, :]
     if window:
-        mask &= qp[:, None] - kp[None, :] < window
+        mask &= qp[..., :, None] - kp[None, :] < window
     s = torch.where(mask, s, NEG_INF)
     m_new = torch.maximum(m_prev, s.amax(dim=-1))
     alpha = torch.exp(torch.clamp(m_prev - m_new, max=0.0))
@@ -84,6 +86,47 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(2), t.stride(1)
 
 
+def check_inputs(kernel: str, q, k, v, qpos, kpos) -> torch.device:
+    """The flash-layout kernels' input check (q [B, Hq, Sq, D], k / v
+    [B, Hkv, Skv, D] views with a last stride of 1, int32 positions, a whole
+    query group per kv head, D <= MAX_HEAD_DIM). Returns the device."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if Hkv == 0 or Hq % Hkv or D > MAX_HEAD_DIM:
+        raise ValueError(f"{kernel}: {Hq} query heads over {Hkv} kv heads, head dim {D}; "
+                         f"the kernel takes a whole group per kv head and D <= {MAX_HEAD_DIM}")
+    return common.check_attention(
+        kernel, q=(q, (B, Hq, Sq, D), "float", False),
+        k=(k, (B, Hkv, Skv, D), "float", False), v=(v, (B, Hkv, Skv, D), "float", False),
+        qpos=(qpos, (Sq,), "int32", True), kpos=(kpos, (Skv,), "int32", True))
+
+
+def mask_args(causal: bool, window: int, softcap: float, D: int) -> tuple:
+    """(causal, window, softcap, 1 / softcap, scale) as the kernels take them:
+    1 / softcap rounded once to float32, as the JAX kernel's
+    s * (1.0 / softcap) rounds it."""
+    return (int(causal), int(window), float(softcap), 1.0 / softcap if softcap else 0.0,
+            D**-0.5)
+
+
+def launch_flash_layout(kernel: str, symbol: str, argtypes, q, k, v, qpos, kpos, *,
+                        causal: bool, window: int, softcap: float, extra=()) -> torch.Tensor:
+    """Check the inputs, allocate the output as a view of a [B, Sq, Hq, D]
+    tensor and launch `symbol`, whose arguments are chef_flash_attention's
+    with `extra` before the bf16 flag."""
+    device = check_inputs(kernel, q, k, v, qpos, kpos)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    out = q.new_empty(B, Sq, Hq, D).transpose(1, 2)
+    fn = build.entry(kernel, symbol, argtypes)
+    common.launch(kernel, fn, device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  qpos.data_ptr(), kpos.data_ptr(), out.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
+                  *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+                  *mask_args(causal, window, softcap, D), *extra,
+                  int(q.dtype == torch.bfloat16))
+    return out
+
+
 def flash_attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
@@ -95,20 +138,5 @@ def flash_attention(q, k, v, qpos, kpos, *, causal: bool = True, window: int = 0
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, qpos, kpos, causal=causal, window=window,
                                          softcap=softcap, block_q=block_q, block_k=block_k)
-    B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
-    if Hkv == 0 or Hq % Hkv or D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: {Hq} query heads over {Hkv} kv heads, head dim {D}; "
-                         f"the kernel takes a whole group per kv head and D <= {MAX_HEAD_DIM}")
-    device = common.check_attention(
-        "flash_attention", q=(q, (B, Hq, Sq, D), "float", False),
-        k=(k, (B, Hkv, Skv, D), "float", False), v=(v, (B, Hkv, Skv, D), "float", False),
-        qpos=(qpos, (Sq,), "int32", True), kpos=(kpos, (Skv,), "int32", True))
-    out = q.new_empty(B, Sq, Hq, D).transpose(1, 2)
-    fn = build.entry("flash_attention", "chef_flash_attention", _ARGTYPES)
-    common.launch("flash_attention", fn, device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  qpos.data_ptr(), kpos.data_ptr(), out.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
-                  *_strides(q), *_strides(k), *_strides(v), *_strides(out), int(causal),
-                  int(window), float(softcap), 1.0 / softcap if softcap else 0.0, D**-0.5,
-                  int(q.dtype == torch.bfloat16))
-    return out
+    return launch_flash_layout("flash_attention", "chef_flash_attention", ARGTYPES, q, k, v,
+                               qpos, kpos, causal=causal, window=window, softcap=softcap)

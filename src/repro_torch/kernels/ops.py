@@ -7,7 +7,8 @@ copy: the CUDA kernel reads through strides). The paged pools already carry
 the kernel layout [N_pages, P, Hkv, D]; only q is regrouped to
 [B, Hkv, G, D].
 
-Each op has a kernel form (`flash_attention`, `paged_decode_attention`: the
+Each op has a kernel form (`flash_attention`, `local_attention`,
+`block_sparse_attention`, `chunked_prefill`, `paged_decode_attention`: the
 CUDA kernel on a CUDA tensor) and a reference form (`*_ref`: the plain
 version on any device). Both forms go through the same adapter, so they see
 the same layouts, positions and merge.
@@ -16,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import chunked_prefill as chunked_lib
+from repro_torch.kernels import local_attention as local_lib
 from repro_torch.kernels.flash_attention import flash_attention_reference
 from repro_torch.kernels.flash_attention import flash_attention as flash_attention_kernel
 from repro_torch.kernels.paged_attention import (combine_pages, paged_attention_partials,
@@ -35,14 +38,19 @@ def _attn_blocks(Sq: int, Skv: int) -> tuple[int, int]:
     return pick(Sq), pick(Skv)
 
 
-def _flash_adapt(inner, q, k, v, qpos, kpos, spec):
-    """Model layout in and out for both flash forms: q [B,S,H,D] ->
-    [B,H,S,D] views, one block choice, int32 positions."""
+def _kernel_layout(inner, q, k, v, qpos, kpos, spec, **extra):
+    """Call a flash-layout form: q [B,S,H,D] -> [B,H,S,D] views, one block
+    choice, int32 positions; returns what `inner` returns."""
     bq, bk = _attn_blocks(q.shape[1], k.shape[1])
-    o = inner(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), qpos.to(torch.int32),
-              kpos.to(torch.int32), causal=spec.causal, window=spec.window,
-              softcap=spec.logit_softcap, block_q=bq, block_k=bk)
-    return o.transpose(1, 2)
+    return inner(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), qpos.to(torch.int32),
+                 kpos.to(torch.int32), causal=spec.causal, window=spec.window,
+                 softcap=spec.logit_softcap, block_q=bq, block_k=bk, **extra)
+
+
+def _flash_adapt(inner, q, k, v, qpos, kpos, spec, **extra):
+    """Model layout in and out for the flash-shaped forms (flash, local,
+    block-sparse)."""
+    return _kernel_layout(inner, q, k, v, qpos, kpos, spec, **extra).transpose(1, 2)
 
 
 def flash_attention(q, k, v, qpos, kpos, spec) -> torch.Tensor:
@@ -53,6 +61,72 @@ def flash_attention(q, k, v, qpos, kpos, spec) -> torch.Tensor:
 def flash_attention_ref(q, k, v, qpos, kpos, spec) -> torch.Tensor:
     """Reference form: the same adapter around the plain blocked program."""
     return _flash_adapt(flash_attention_reference, q, k, v, qpos, kpos, spec)
+
+
+def local_attention(q, k, v, qpos, kpos, spec) -> torch.Tensor:
+    """Kernel form: [B, Sq, Hq, D] banded attention (whole KV blocks outside
+    the causal / window band skipped); flash attention's result."""
+    return _flash_adapt(local_lib.local_attention, q, k, v, qpos, kpos, spec)
+
+
+def local_attention_ref(q, k, v, qpos, kpos, spec) -> torch.Tensor:
+    """Reference form: the same adapter around the plain banded program."""
+    return _flash_adapt(local_lib.local_attention_reference, q, k, v, qpos, kpos, spec)
+
+
+def attn_block_mask_shape(Sq: int, Skv: int) -> tuple[int, int]:
+    """(nq, nk) of the block mask `block_sparse_attention` takes for Sq
+    queries over Skv keys: the blocks of `_attn_blocks`."""
+    bq, bk = _attn_blocks(Sq, Skv)
+    return Sq // bq, Skv // bk
+
+
+def block_sparse_attention(q, k, v, qpos, kpos, block_mask, spec) -> torch.Tensor:
+    """Kernel form: [B, Sq, Hq, D] attention with the KV blocks that have a 0
+    in `block_mask` ([nq, nk], see `attn_block_mask_shape`) skipped; causal
+    and window still mask elements inside enabled blocks."""
+    return _flash_adapt(local_lib.block_sparse_attention, q, k, v, qpos, kpos, spec,
+                        block_mask=block_mask.to(torch.int32).contiguous())
+
+
+def block_sparse_attention_ref(q, k, v, qpos, kpos, block_mask, spec) -> torch.Tensor:
+    """Reference form: the plain program, the same blocks skipped."""
+    return _flash_adapt(local_lib.block_sparse_attention_reference, q, k, v, qpos, kpos, spec,
+                        block_mask=block_mask)
+
+
+def chunked_prefill_partials(q, k, v, qpos, kpos, spec, chunk: int):
+    """Kernel half of the chunked-prefill op: the flash fold run chunk by
+    chunk, its final carry as the singleton partials m, l [B, Hq, 1, Sq] and
+    acc [B, Hq, 1, Sq, D] float32 (kernel layout)."""
+    return _kernel_layout(chunked_lib.chunked_prefill_partials, q, k, v, qpos, kpos, spec,
+                          chunk=chunk)
+
+
+def chunked_prefill_partials_ref(q, k, v, qpos, kpos, spec, chunk: int):
+    """Reference form of `chunked_prefill_partials`: the plain fold."""
+    return _kernel_layout(chunked_lib.chunked_prefill_partials_reference, q, k, v, qpos, kpos,
+                          spec, chunk=chunk)
+
+
+def chunked_prefill_finish(m, l, acc, q) -> torch.Tensor:
+    """Merge half of the chunked-prefill op: `combine_pages` over the
+    singleton partial (weights exp(0) = 1, so flash's finalize), in q's dtype
+    and the model layout [B, Sq, Hq, D]."""
+    return combine_pages(m, l, acc).to(q.dtype).transpose(1, 2)
+
+
+def chunked_prefill(q, k, v, qpos, kpos, spec, chunk: int) -> torch.Tensor:
+    """Kernel form: chunked GQA prefill, O(Sq * chunk) live scores; flash
+    attention's result for any chunk."""
+    m, l, acc = chunked_prefill_partials(q, k, v, qpos, kpos, spec, chunk)
+    return chunked_prefill_finish(m, l, acc, q)
+
+
+def chunked_prefill_ref(q, k, v, qpos, kpos, spec, chunk: int) -> torch.Tensor:
+    """Reference form: the plain partials and the same merge."""
+    m, l, acc = chunked_prefill_partials_ref(q, k, v, qpos, kpos, spec, chunk)
+    return chunked_prefill_finish(m, l, acc, q)
 
 
 def _paged_layout(q, k_pages):

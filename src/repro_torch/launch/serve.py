@@ -8,10 +8,16 @@ The flags and defaults are `repro.launch.serve`'s, plus `--device`. As
 there, the model is `reduced(get_config(arch))` with random weights from
 `--seed`, and the command returns (and logs) the same summary dict.
 `--backend` is `reference` (plain PyTorch) or `cuda` (the hand-written
-attention kernels). Options whose paths are not ported yet (`--cache ring`,
-`--spec_k` > 1, `--prefill_chunk` > 0, `--attn window:<W>`, `--kv_dtype
-int8`) raise NotImplementedError naming ROADMAP.md. As in `repro`,
-`--kv_dtype bf16` leaves the paged pools in the param dtype.
+attention kernels). A sliding-window arch (`--arch starcoder2-3b`, or
+`--attn window:<W>`) prefills through the banded kernel and retires pages
+that slid out of its window; `--prefill_chunk N` > 0 prefills a KV span
+longer than N in chunks. Options whose paths are not ported yet (`--cache
+ring`, `--spec_k` > 1, `--kv_dtype int8`) raise NotImplementedError naming
+ROADMAP.md. As in `repro`, `--kv_dtype bf16` leaves the paged pools in the
+param dtype.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
+      --attn window:16 --prefill_chunk 16 --prompt_len 40 --device cpu
 """
 from __future__ import annotations
 
@@ -53,14 +59,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--spec_k", type=int, default=0,
                     help="speculative decode rows per step (<=1 = off; not ported yet)")
     ap.add_argument("--prefill_chunk", type=int, default=0,
-                    help="chunked-prefill KV span in tokens (0 = full-width flash prefill; "
-                         "not ported yet)")
+                    help="chunked-prefill KV span in tokens (0 = full-width flash prefill)")
     ap.add_argument("--prefix_cap", type=int, default=0,
                     help="max warm prefix-index entries, LRU-evicted past the cap "
                          "(0 = unbounded)")
     ap.add_argument("--attn", default="",
-                    help="attention-pattern override: 'window:<W>' (not ported yet) or "
-                         "'full'; empty keeps the arch pattern")
+                    help="attention-pattern override: 'window:<W>' or 'full'; empty keeps "
+                         "the arch pattern")
     ap.add_argument("--kv_dtype", default="", choices=["", "int8", "bf16"],
                     help="KV cache dtype override: int8 (not ported yet), bf16, or empty = "
                          "the model's param dtype")

@@ -24,18 +24,16 @@ class AttnSpec(NamedTuple):
 
 
 def attention(q, k, v, qpos, kpos, spec: AttnSpec, backend, prefill_chunk: int = 0):
-    """Multi-token attention through the serving backend
-    (`Backend.flash_attention`), `repro`'s backend route. The routes `repro`
-    takes for a chunked prefill (`Backend.chunked_prefill`) and for a
-    windowed multi-token query (`Backend.local_attention`) run kernels the
-    port does not have yet; they raise instead of falling back."""
+    """Multi-token attention through the serving backend, `repro`'s route,
+    most specific first: a chunked prefill (`Backend.chunked_prefill`) when
+    `prefill_chunk` > 0 and the KV span exceeds it; a windowed multi-token
+    query through the banded kernel (`Backend.local_attention`); else
+    `Backend.flash_attention`. All three give flash attention's result."""
     Sq, Skv = q.shape[1], k.shape[1]
     if prefill_chunk and Sq > 1 and Skv > prefill_chunk:
-        raise NotImplementedError("chunked prefill (prefill_chunk > 0) is not ported to "
-                                  "repro_torch yet; see ROADMAP.md queue 2")
+        return backend.chunked_prefill(q, k, v, qpos, kpos, spec, prefill_chunk)
     if spec.window and Sq > 1:
-        raise NotImplementedError("a windowed multi-token prefill (local_attention) is not "
-                                  "ported to repro_torch yet; see ROADMAP.md queue 2")
+        return backend.local_attention(q, k, v, qpos, kpos, spec)
     return backend.flash_attention(q, k, v, qpos, kpos, spec)
 
 

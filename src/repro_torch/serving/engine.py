@@ -6,9 +6,9 @@ ceil((prompt + budget) / page_size) tokens, is prefilled alone at a
 power-of-two bucket of its prompt length (right-padded: the causal mask is
 the pad mask), and decodes at its own absolute positions; a block table
 maps each slot's logical pages to physical ones, page 0 being the trash
-page of parked slots and pad rows. Every prefill goes through
-`Backend.flash_attention` and every decode step through
-`Backend.paged_decode_attention`, so on backend `cuda` the two attention
+page of parked slots and pad rows. A full-attention arch prefills through
+`Backend.flash_attention`, and every decode step goes through
+`Backend.paged_decode_attention`, so on backend `cuda` the attention
 kernels serve every token.
 
 Prefix sharing (`ServeConfig.share_prefix`, on by default): admission keys
@@ -23,12 +23,19 @@ evicted newest chain first under pool pressure, least recently used first
 past `prefix_cap`. The pool and the index persist across `run()` waves, so
 a later wave's repeated prefix aliases pages an earlier wave prefilled.
 
+Sliding-window archs prefill through `Backend.local_attention` (the banded
+kernel), and with `ServeConfig.prefill_chunk > 0` a prefill whose KV span
+exceeds the chunk goes through `Backend.chunked_prefill`. For a windowed arch
+the engine also retires pages (`ServeConfig.retire_pages`, on by default):
+after each decode round every block-table entry whose whole page has slid
+out of the window is pointed at the trash page and unpinned, freed once no
+table row or index entry holds it. Such a page's keys all fail the decode
+kernel's `kpos > pos - window` test, so its partial was already the neutral
+one the trash page gives: retiring changes no output.
+
 Not ported yet, and raising `NotImplementedError` that names ROADMAP.md:
 the ring cache (`cache="ring"`, and `"auto"` on a recurrent or enc-dec
-arch), speculative decode (`spec_k > 1`), chunked prefill
-(`prefill_chunk > 0`), int8 page pools, and sliding-window archs (their
-prefill runs `repro`'s banded local-attention kernel). So page retirement
-(`retire_pages`, which acts only on windowed archs) never acts here.
+arch), speculative decode (`spec_k > 1`) and int8 page pools.
 """
 from __future__ import annotations
 
@@ -139,11 +146,11 @@ class ServeEngine:
             raise NotImplementedError(f"int8 page pools (kv_dtype int8) {_SEE}")
         if cfg.spec_k > 1:
             raise NotImplementedError(f"speculative decode (spec_k > 1) {_SEE}")
-        if cfg.prefill_chunk > 0:
-            raise NotImplementedError(f"chunked prefill (prefill_chunk > 0) {_SEE}")
-        if model.cfg.sliding_window or "local" in model.cfg.block_pattern:
-            raise NotImplementedError(f"sliding-window archs (their prefill runs the banded "
-                                      f"local-attention kernel) {_SEE}")
+        # page retirement is exact only where every layer masks beyond the
+        # window, as each of the port's layers does on a sliding arch (the
+        # window `transformer._attn_spec` gives every block)
+        w = model.cfg.sliding_window if model.cfg.attn_kind == "sliding" else 0
+        self._retire_window = w if cfg.retire_pages else 0
         if cfg.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {cfg.page_size}")
         self.prefill_widths: set = set()  # distinct prefill widths run
@@ -192,6 +199,44 @@ class ServeEngine:
         """Refresh the card's refcount mirror from the host's array."""
         cache["refcount"].copy_(torch.from_numpy(self.page_refs))
         return cache
+
+    # --------------------------------------------- sliding-window retirement
+    def _retire_window_pages(self, cache, free: list, slot_pages: list, active: list):
+        """Release every block-table page whose whole span has slid out of the
+        window. Page j (tokens [j P, (j+1) P)) is dead for the next decode at
+        position p + 1 once (j+1) P - 1 <= p - window: every key of it fails
+        the decode kernel's `kpos > pos - window` test, so pointing its table
+        entry at the trash page changes no output. Refcount-aware: an aliased
+        prefix page is only unpinned, and returns to the free list at
+        refcount zero. Returns (cache, whether any page was retired)."""
+        w = self._retire_window
+        if not w:
+            return cache, False
+        P = self.config.page_size
+        freed = False
+        for i, r in enumerate(active):
+            if r is None:
+                continue
+            p = len(r.prompt) + len(r.out) - 1  # last written position
+            n_dead = (p - w + 1) // P
+            if n_dead <= 0:
+                continue
+            row = self._slot_rows[i]
+            for j in range(n_dead):
+                pg = int(row[j])
+                if pg == 0:
+                    continue
+                row[j] = 0
+                cache["pages"][i, j] = 0
+                slot_pages[i].remove(pg)
+                self.page_refs[pg] -= 1
+                if self.page_refs[pg] == 0:
+                    free.append(pg)
+                self.stats["pages_retired"] += 1
+                freed = True
+        if freed:
+            cache = self._sync_refcount(cache)
+        return cache, freed
 
     # ----------------------------------------------- prefix index + refcounts
     def _class_bit(self, bucket: int) -> bool:
@@ -366,7 +411,8 @@ class ServeEngine:
                     active[i] = None
                     cache = self._release_slot(cache, free, slot_pages, i)
                     freed = True
-            if freed:
+            cache, retired = self._retire_window_pages(cache, free, slot_pages, active)
+            if freed or retired:
                 cache, nxt = self._admit_idle_slots(pending, done, cache, nxt, active,
                                                     remaining, free, slot_pages)
         if pending:

@@ -202,14 +202,20 @@ def _layers_case(norm_kind, mlp_kind):
 
 
 def _check_configs():
-    """olmo-1b and its reduced form carry every field of repro's; an arch
-    the port cannot run yet raises and names ROADMAP.md."""
-    assert dataclasses.asdict(get_config("olmo-1b")) == dataclasses.asdict(
-        j_get_config("olmo-1b"))
+    """olmo-1b and starcoder2-3b and their reduced forms carry every field of
+    repro's; an arch the port cannot run yet raises and names ROADMAP.md."""
+    for arch in ("olmo-1b", "starcoder2-3b"):
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get_config(arch))
+        assert dataclasses.asdict(reduced(get_config(arch))) == \
+            dataclasses.asdict(j_reduced(j_get_config(arch)))
     assert dataclasses.asdict(reduced(get_config("olmo-1b"), n_kv_heads=2)) == \
         dataclasses.asdict(j_reduced(j_get_config("olmo-1b"), n_kv_heads=2))
     cfg = get_config("olmo-1b")
     assert (cfg.padded_vocab, cfg.resolved_head_dim) == (50_432, 128)
+    cfg = get_config("starcoder2-3b")
+    assert (cfg.sliding_window, cfg.n_heads // cfg.n_kv_heads, cfg.padded_vocab) == (4096, 12,
+                                                                                      49_152)
+    assert reduced(cfg).sliding_window == 32
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_config("mixtral-8x22b")
 
@@ -324,21 +330,44 @@ def _check_model_entry_points_need_the_card_unless_asked_for_the_cpu():
             Model(reduced(get_config("olmo-1b")))
 
 
-def _check_windowed_prefill_raises_instead_of_falling_back():
-    """repro routes a windowed multi-token query to local_attention and a
-    chunked prefill to chunked_prefill: neither is ported, both raise."""
-    x = torch.zeros(1, 4, 2, 8)
-    pos = torch.arange(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attn.attention(x, x, x, pos, pos, AttnSpec(True, 2, 0.0), Backend("reference"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attn.attention(x, x, x, pos, pos, AttnSpec(), Backend("reference"), prefill_chunk=2)
+def _check_windowed_and_chunked_prefill_routes():
+    """repro's route: a chunked prefill where prefill_chunk > 0 and the KV
+    span exceeds it, local_attention for a windowed multi-token query, flash
+    otherwise; each gives flash attention's result, and a one-token query or
+    a span within the chunk stays on flash."""
+    r = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(r.standard_normal((1, 16, 2, 8)).astype(np.float32))
+               for _ in range(3))
+    pos = torch.arange(16)
+    bk = Backend("reference")
+    calls = []
+
+    class Recording(Backend):
+        def __getattribute__(self, name):
+            if name in ("flash_attention", "local_attention", "chunked_prefill"):
+                calls.append(name)
+            return super().__getattribute__(name)
+
+    rec = Recording("reference")
+    for spec, chunk, want in ((AttnSpec(True, 4, 0.0), 0, "local_attention"),
+                              (AttnSpec(True, 4, 0.0), 8, "chunked_prefill"),
+                              (AttnSpec(), 8, "chunked_prefill"),
+                              (AttnSpec(), 16, "flash_attention"),
+                              (AttnSpec(), 0, "flash_attention")):
+        calls.clear()
+        out = attn.attention(q, k, v, pos, pos, spec, rec, chunk)
+        assert calls == [want]
+        np.testing.assert_allclose(out.numpy(), bk.flash_attention(q, k, v, pos, pos,
+                                                                   spec).numpy(), **OP_TOL)
+    calls.clear()
+    attn.attention(q[:, :1], k, v, pos[:1] + 15, pos, AttnSpec(True, 4, 0.0), rec, 8)
+    assert calls == ["flash_attention"]
 
 
 def test_attention_ops_layers_and_model_match_jax():
     """Every check of this module, in one test item (see the module note):
     the flash and paged ops, the layers, the configs, the model variants,
-    and the paths that must raise."""
+    the device rule and the prefill routes."""
     _check_flash_attention()
     _check_attn_blocks()
     _check_paged_decode_attention()
@@ -347,4 +376,4 @@ def test_attention_ops_layers_and_model_match_jax():
     for variant in sorted(MODEL_VARIANTS):
         _check_model(variant)
     _check_model_entry_points_need_the_card_unless_asked_for_the_cpu()
-    _check_windowed_prefill_raises_instead_of_falling_back()
+    _check_windowed_and_chunked_prefill_routes()

@@ -411,3 +411,155 @@ def test_serve_engine_cuda_matches_reference_on_the_card():
         assert np.abs(la - lb).max() <= 1e-4 * np.abs(lb).max() + 1e-5
     assert launches["flash_attention"] == cfg.n_layers * len(prompts)
     assert launches["paged_attention"] == cfg.n_layers * stats["decode_rounds"]
+
+
+# B, Sq, Skv, Hq, Hkv, D, first q position, window, softcap, dtype, chunk
+WINDOWED_CASES = [
+    (1, 300, 300, 24, 2, 128, 0, 96, 0.0, torch.float32, 100),  # starcoder2-3b heads, ragged
+    (2, 77, 200, 4, 2, 64, 123, 40, 30.0, torch.float32, 64),  # a tail: GQA, window, softcap
+    (1, 200, 200, 8, 2, 16, 0, 0, 0.0, torch.bfloat16, 30),  # mask blocks of 100, bf16
+    (1, 130, 130, 4, 4, 32, 0, 50, 0.0, torch.bfloat16, 1000),  # one chunk
+]
+
+
+def test_windowed_kernels_and_engine_on_the_card():
+    """One item for the banded, block-sparse and chunked-prefill kernels and
+    the windowed engine (few items after tests/test_serving_prop.py keep the
+    xdist schedule; see tests/test_torch_attention.py). At each of
+    WINDOWED_CASES:
+
+    * local_attention against its plain version, and bit for bit the flash
+      kernel for the same spec;
+    * block_sparse_attention with an all-ones mask bit for bit flash, with
+      the band's own block mask bit for bit local, with a seeded random mask
+      (about half the blocks) against its plain version; rows whose blocks
+      are all disabled give zeros;
+    * the chunked partials against the plain partials, and chunked plus the
+      merge bit for bit flash, in ceil(Skv / chunk_blocks(chunk, 64))
+      launches;
+    * each kernel bit for bit on a repeat, one launch a call;
+
+    then ServeEngine at reduced(starcoder2-3b) widened (4 layers, d_model
+    256, 12 query heads over 2 kv heads of 64, window 48) on backend cuda,
+    unchunked and with prefill_chunk 32, against reference: the same tokens,
+    finish order and counters (pages retired), logits within 1e-4 *
+    max|logit| + 1e-5, and the launches the schedule predicts."""
+    dev = _card()
+    for case in WINDOWED_CASES:
+        _windowed_case(dev, *case)
+    _windowed_kernels_raise(dev)
+    _windowed_engine(dev)
+
+
+def _windowed_case(dev, B, Sq, Skv, Hq, Hkv, D, off, window, softcap, dtype, chunk):
+    from repro_torch.kernels import chunked_prefill, local_attention, ops
+    from repro_torch.models.attention import AttnSpec
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(B, Sq, Hq, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).to(dtype)
+    qpos = torch.arange(off, off + Sq, dtype=torch.int32, device=dev)
+    kpos = torch.arange(Skv, dtype=torch.int32, device=dev)
+    spec = AttnSpec(True, window, softcap)
+    a = (q, k, v, qpos, kpos)
+    flash = ops.flash_attention(*a, spec)
+    n = dict(LAUNCHES)
+    local = ops.local_attention(*a, spec)
+    torch.cuda.synchronize()
+    ref = ops.local_attention_ref(*a, spec)
+    assert local.shape == ref.shape == (B, Sq, Hq, D) and local.dtype == dtype
+    assert float((local.float() - ref.float()).abs().max()) <= _tol(dtype, ref)
+    assert torch.equal(local, flash)
+    assert torch.equal(ops.local_attention(*a, spec), local)
+    assert LAUNCHES["local_attention"] == n["local_attention"] + 2
+
+    nq, nk = ops.attn_block_mask_shape(Sq, Skv)
+    bq, bk = Sq // nq, Skv // nk
+    band = local_attention.band_live(qpos.cpu().reshape(nq, bq), kpos.cpu().reshape(nk, bk),
+                                     causal=True, window=window)
+    for mask, want in ((torch.ones(nq, nk), flash), (torch.from_numpy(band), local)):
+        got = ops.block_sparse_attention(*a, mask.to(device=dev, dtype=torch.int32), spec)
+        assert torch.equal(got, want)
+    mask = (torch.rand(nq, nk, generator=g, device=dev) < 0.5).int()
+    mask[0] = 0  # the first q block attends nothing
+    sparse = ops.block_sparse_attention(*a, mask, spec)
+    torch.cuda.synchronize()
+    sparse_ref = ops.block_sparse_attention_ref(*a, mask, spec)
+    assert float((sparse.float() - sparse_ref.float()).abs().max()) <= _tol(dtype, sparse_ref)
+    assert not sparse[:, :bq].any()
+    assert torch.equal(ops.block_sparse_attention(*a, mask, spec), sparse)
+    assert LAUNCHES["block_sparse_attention"] == n["block_sparse_attention"] + 4
+
+    parts = ops.chunked_prefill_partials(*a, spec, chunk)
+    torch.cuda.synchronize()
+    parts_ref = ops.chunked_prefill_partials_ref(*a, spec, chunk)
+    for x, y in zip(parts, parts_ref):
+        assert x.shape == y.shape and x.dtype == torch.float32
+        assert float((x - y).abs().max()) <= TOL_REL * float(y.abs().max()) + TOL_ABS
+    assert all(torch.equal(x, y) for x, y in zip(ops.chunked_prefill_partials(*a, spec, chunk),
+                                                 parts))
+    assert torch.equal(ops.chunked_prefill_finish(*parts, q), flash)
+    launches = -(-Skv // chunked_prefill.chunk_blocks(chunk, chunked_prefill.KV_TILE))
+    assert LAUNCHES["chunked_prefill"] == n["chunked_prefill"] + 2 * launches
+
+
+def _windowed_kernels_raise(dev):
+    from repro_torch.kernels import chunked_prefill, local_attention
+
+    q = torch.randn(1, 4, 8, 16, device=dev)
+    pos = torch.arange(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        local_attention.local_attention(q, q, q, pos.long(), pos)
+    with pytest.raises(ValueError, match="kv heads"):
+        chunked_prefill.chunked_prefill_partials(q, q[:, :3], q[:, :3], pos, pos, chunk=64)
+    with pytest.raises(ValueError, match="block_mask"):
+        local_attention.block_sparse_attention(q, q, q, pos, pos, block_q=8, block_k=8,
+                                               block_mask=torch.ones(1, 1, device=dev))
+
+
+def _windowed_engine(dev):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServeConfig, ServeEngine
+
+    cfg = reduced(get_config("starcoder2-3b"), n_layers=4, d_model=256, n_heads=12, head_dim=64,
+                  d_ff=512, vocab_size=512, sliding_window=48)
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    r = np.random.default_rng(0)
+    shared = r.integers(0, 512, 16)
+    prompts = []
+    for i, n in enumerate((9, 100, 70, 140, 30, 60)):
+        p = r.integers(0, 512, n)
+        if i % 2 == 1:
+            p[:16] = shared
+        prompts.append(p.astype(np.int32))
+    runs = {}
+    for name, chunk in (("cuda", 0), ("cuda", 32), ("reference", 0)):
+        reset_launches()
+        eng = ServeEngine(model, params, backend=name, device=dev,
+                          config=ServeConfig(batch_size=3, max_len=160, trace_logits=True,
+                                             prefill_chunk=chunk))
+        done = eng.run([Request(uid=i, prompt=p, max_new=5) for i, p in enumerate(prompts)])
+        runs[name, chunk] = (done, dict(eng.stats), dict(LAUNCHES))
+    done_ref, stats_ref, _ = runs["reference", 0]
+    assert stats_ref["pages_retired"] > 0 and stats_ref["prefix_hits"] >= 1
+    for chunk in (0, 32):
+        done, stats, launches = runs["cuda", chunk]
+        assert [q.uid for q in done] == [q.uid for q in done_ref]
+        assert [q.out for q in done] == [q.out for q in done_ref]
+        assert stats == stats_ref
+        for x, y in zip(done, done_ref):
+            la, lb = np.stack(x.logits), np.stack(y.logits)
+            assert np.abs(la - lb).max() <= 1e-4 * np.abs(lb).max() + 1e-5
+        # each prefill is one launch a layer: chunked where its kv span
+        # (the prompt's bucket) exceeds the chunk, else banded
+        kv = [1 << max(3, (len(p) - 1).bit_length()) for p in prompts]
+        n_chunked = sum(-(-w // 64) for w in kv if chunk and w > chunk)
+        n_local = sum(1 for w in kv if not (chunk and w > chunk))
+        assert launches["chunked_prefill"] == cfg.n_layers * n_chunked
+        assert launches["local_attention"] == cfg.n_layers * n_local
+        assert launches["flash_attention"] == 0
+        assert launches["paged_attention"] == cfg.n_layers * stats["decode_rounds"]

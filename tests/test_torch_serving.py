@@ -189,7 +189,9 @@ def _check_defaults_match_jax(monkeypatch):
 
 def _check_cli_runs_on_the_cpu_and_returns_the_summary():
     """The serve CLI with --device cpu on both backends: the same counters,
-    and the summary dict has the keys repro's CLI returns."""
+    and the summary dict has the keys repro's CLI returns; with --attn
+    window:4 it retires pages, and with --prefill_chunk the same run gives the
+    same counters."""
     argv = ["--requests", "3", "--batch", "2", "--prompt_len", "12", "--max_new", "3",
             "--prefix_len", "8", "--device", "cpu"]
     ref = serve.main(argv)
@@ -199,6 +201,11 @@ def _check_cli_runs_on_the_cpu_and_returns_the_summary():
     assert ref["cache"] == "paged"
     assert set(ref) == {"requests", "tokens", "wall_s", "backend", "cache", "prefix_hit_rate",
                         "stats", "prefill_chunk", "window"}
+    windowed = serve.main(argv + ["--attn", "window:4"])
+    chunked = serve.main(argv + ["--attn", "window:4", "--prefill_chunk", "4"])
+    assert (windowed["window"], chunked["prefill_chunk"]) == (4, 4)
+    assert windowed["tokens"] == chunked["tokens"] == 9
+    assert windowed["stats"] == chunked["stats"] and windowed["stats"]["pages_retired"] > 0
 
 
 def _tiny_model(**overrides):
@@ -213,28 +220,39 @@ NOT_PORTED = {
         Model(dataclasses.replace(m.cfg, block_pattern=("rglru",)), device="cpu"), p,
         device="cpu"),
     "spec_k": lambda m, p: ServeEngine(m, p, device="cpu", config=ServeConfig(spec_k=2)),
-    "prefill_chunk": lambda m, p: ServeEngine(m, p, device="cpu",
-                                              config=ServeConfig(prefill_chunk=16)),
     "int8": lambda m, p: (setattr(m, "kv_dtype", torch.int8), ServeEngine(m, p, device="cpu")),
-    "sliding_window": lambda m, p: ServeEngine(
-        Model(dataclasses.replace(m.cfg, attn_kind="sliding", sliding_window=16),
-              device="cpu"), p, device="cpu"),
+    "ring_prefill_of_a_windowed_arch": lambda m, p: Model(
+        dataclasses.replace(m.cfg, attn_kind="sliding", sliding_window=16),
+        device="cpu").prefill(p, {"tokens": torch.zeros(1, 8, dtype=torch.int32)}),
     "arch": lambda m, p: get_config("recurrentgemma-9b"),
     "model_init_of_a_moe": lambda m, p: Model(
         ModelConfig("moe", "moe", 2, 64, 4, 4, 128, 256, block_pattern=("attn_moe",)),
         device="cpu").init(0),
-    "cli_window": lambda m, p: serve.main(["--device", "cpu", "--attn", "window:8"]),
+}
+# paths the port once raised for that now run: each serves a request
+PORTED = {
+    "prefill_chunk": lambda m, p: ServeEngine(m, p, device="cpu",
+                                              config=ServeConfig(prefill_chunk=16)),
+    "sliding_window": lambda m, p: ServeEngine(
+        Model(dataclasses.replace(m.cfg, attn_kind="sliding", sliding_window=16),
+              device="cpu"), p, device="cpu"),
 }
 
 
 def _check_not_yet_ported_options_raise():
     """Every path of NOT_PORTED, which the port does not have yet, raises
     NotImplementedError naming ROADMAP.md; none falls back to something
-    else."""
+    else. Every path of PORTED serves a 40-token prompt."""
     for what in sorted(NOT_PORTED):
         m, p = _tiny_model()
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             NOT_PORTED[what](m, p)
+    prompt = np.random.default_rng(0).integers(0, 256, 40).astype(np.int32)
+    for what in sorted(PORTED):
+        m, p = _tiny_model()
+        eng = PORTED[what](m, p)
+        done = eng.run([Request(uid=0, prompt=prompt, max_new=3)])
+        assert len(done[0].out) == 3 and eng.stats["decode_rounds"] == 2
 
 
 def _check_engine_needs_the_card_unless_asked_for_the_cpu():
