@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`src/repro_torch`) on one H100: the CHEF
-cleaning loop, the paged serving path and the sliding-window serving path.
+cleaning loop, the paged serving path, the sliding-window serving path, the
+ring serving path and the int8 page pools.
 
     python3 chip_smoke.py
 
-1. Builds the ten CUDA kernels from `src/repro_torch/kernels/csrc` (one
-   nvcc per source, all nine sources at once) and prints nvcc's
+1. Builds the twelve CUDA kernels from `src/repro_torch/kernels/csrc` (one
+   nvcc per source, all ten sources at once) and prints nvcc's
    `-Xptxas -v` report.
 2. For each CHEF kernel, at the main path's shapes (the mimic widths of the
    paper's Table 3; replay_correction at r = 1, 3 and 64 changed slots, a
@@ -28,6 +29,12 @@ cleaning loop, the paged serving path and the sliding-window serving path.
    then, bit for bit, local == flash, chunked + merge == flash,
    block-sparse with an all-ones mask == flash and with the band's mask ==
    local.
+3c. The same for the ring and int8 kernels: decode_attention at
+   RecurrentGemma-9B's decode shape (16 query heads over 1 kv head of 256,
+   a wrapped ring of 2048) and at OLMo-1B's ring shape (plain, softcap,
+   bf16), beside one SDPA call; the int8 paged partials at OLMo-1B's and
+   StarCoder2-3B's decode shapes; local_attention at RecurrentGemma-9B's
+   3000-token prefill (D 256), beside SDPA and bit for bit flash.
 4. Serving: OLMo-1B at full width (float32, random weights from SEED) in
    ServeEngine(batch_size=4, max_len=256) at its defaults, prefix sharing
    on, serves 8 requests (prompt buckets 32-256, four sharing a 64-token
@@ -35,7 +42,13 @@ cleaning loop, the paged serving path and the sliding-window serving path.
    just before, read just after) and on `reference`: same tokens (or a
    top-2 tie within 2e-3), logits within 1e-3 * (1 + |ref|), a joined
    request rerun solo gives the same tokens, and exactly 16 flash launches
-   per prefill and 16 paged launches per decode round.
+   per prefill and 16 paged launches per decode round. Then the same 8
+   requests with Model.kv_dtype = torch.int8 (int8 page pools, prefix
+   sharing off) on `cuda` and `reference`: the same tokens, logits within one
+   int8 step, 1/127 * (1 + |ref|), the pools' codes at most one step apart,
+   0 prefix hits,
+   16 int8-partials launches per decode round, the pools' bytes beside the
+   float32 pools', and the share of tokens equal to the float32 run.
 4b. The block-sparse entry point, Backend.block_sparse_attention, with four
    block masks at StarCoder2's head shapes on `cuda` (launch counts set to
    0 just before, read just after) and on `reference`.
@@ -47,6 +60,16 @@ cleaning loop, the paged serving path and the sliding-window serving path.
    tie), logits within 1e-3 * (1 + |ref|), the same counters, and the
    launches, decode rounds and retired pages predicted before the runs;
    then the unchunked run under torch.profiler.
+4d. Serving RecurrentGemma-9B at full width (float32, random weights from
+   SEED, 34.3 GB, made on the card once StarCoder2-3B's are freed) in
+   ServeEngine(batch_size=2, max_len=4096) at cache "auto", which must
+   resolve to the ring: a wave of prompts of 2,600 and 3,000 tokens (past
+   the 2048 window: the ring roll runs and the ring wraps) and a prompt of
+   400 that joins the first slot when it frees, on `cuda` and `reference`:
+   the same tokens (or a top-2 tie), logits within 1e-3 * (1 + |ref|), the
+   same prefill widths and finish order, and the local_attention and
+   decode_attention launches predicted before the runs; then the `cuda`
+   run under torch.profiler.
 5. Then `sgd_train` and `deltagrad_replay` on the kernels repeat bit for
    bit, and the CHEF main path, `run_chef(method="infl",
    selector="increm")` on a mimic-shaped dataset made on the card, 3 rounds
@@ -64,10 +87,12 @@ cleaning loop, the paged serving path and the sliding-window serving path.
    the host, run under sync-debug mode, and profiled (device busy time,
    idle share, blocking runtime calls, the costliest host ops).
 8. Prints the kernels line (launches from the DeltaGrad-L run on `cuda`,
-   for flash and paged attention from the OLMo-1B run on `cuda`, for
-   block-sparse attention from phase 4b, for local attention from the
-   unchunked and for chunked prefill from the chunked StarCoder2 run), the
-   card's name and power limit, and last `{"ok": true, "device": {...}}`.
+   for flash and paged attention from the OLMo-1B run on `cuda`, for the
+   int8 partials from its int8 run, for block-sparse attention from phase
+   4b, for local attention from the unchunked and for chunked prefill from
+   the chunked StarCoder2 run, for decode attention from the
+   RecurrentGemma-9B run), the card's name and power limit, and last
+   `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero. Needs a CUDA device; imports nothing of JAX or of
 the JAX package.
@@ -109,6 +134,8 @@ REPLACES = {
     "local_attention": "src/repro/kernels/local_attention.py:190",
     "block_sparse_attention": "src/repro/kernels/local_attention.py:212",
     "chunked_prefill": "src/repro/kernels/chunked_prefill.py:131",
+    "decode_attention": "src/repro/kernels/decode_attention.py:67",
+    "paged_attention_quant": "src/repro/kernels/paged_attention.py:247",
 }
 CHEF_KERNELS = ("lr_grad", "lr_hvp", "minibatch_grad", "infl_scores", "replay_correction")
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -120,6 +147,15 @@ SERVE_PREFIX, SERVE_MAX_NEW, SERVE_BATCH, SERVE_MAX_LEN = 64, 16, 4, 256
 SERVE_JOINED = 5  # a request admitted mid-stream (a prefix hit), rerun solo
 LOGIT_TOL = 1e-3  # cuda vs reference logits: |a - b| <= LOGIT_TOL * (1 + |b|)
 TIE_MARGIN = 2 * LOGIT_TOL  # tokens may part only where the top-2 logits lie this close
+# int8 K/V pools: float noise between the backends' attention kernels moves a
+# K/V value across a rounding boundary now and then, and that code then
+# differs by one step of its page's scale (max|x| / 127, 0.8% of the row's
+# largest value), which the later layers carry on: logits are held to one
+# such step, LOGIT_TOL_INT8 * (1 + |b|), and the pools' codes to at most one
+# step apart (repro's own int8 differential oracle,
+# tests/test_serving.py::test_serve_engine_int8_paged_matches_ring_oracle,
+# allows 1e-1)
+LOGIT_TOL_INT8 = 1.0 / 127
 # the sliding-window path: StarCoder2-3B at full width (window 4096), random
 # weights from SEED; two long prompts past the window (bucket 8192) and two
 # short ones sharing a page-aligned prefix, 32 new tokens each
@@ -129,6 +165,14 @@ SC_PREFIX, SC_MAX_NEW, SC_BATCH, SC_PAGE = 128, 32, 2, 8
 SC_CHUNK = 2048  # the chunked run's prefill_chunk
 SC_SEQ = 8192  # the kernel phase's prefill width: the long prompts' bucket
 BLOCK_SPARSE_CALLS = 4  # Backend.block_sparse_attention calls of the block-sparse phase
+# the ring path: RecurrentGemma-9B at full width (window 2048), random weights
+# from SEED; a wave of two prompts past the window, then a third request that
+# joins the first one's slot when it finishes
+RG_LENGTHS = (2600, 3000, 400)
+RG_MAX_NEW = (16, 48, 24)
+RG_BATCH, RG_MAX_LEN = 2, 4096
+RG_WINDOW = 2048  # the ring of a local layer (configs/recurrentgemma_9b.py)
+RG_DECODE_POS = 3030  # the kernel phase's decode position: the ring wrapped
 
 
 def fail(msg: str) -> None:
@@ -178,6 +222,35 @@ def bound(bytes_moved: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _template_args(targs: str) -> list[str]:
+    """Readable template arguments from a mangled list such as
+    `ILi128EfLb1E` or `I13__nv_bfloat16aE`: ints, f32, bf16, int8, mask=0/1
+    (a substitution repeats the type before it)."""
+    out, i = [], 1
+    while i < len(targs):
+        if targs.startswith("Li", i):
+            j = targs.index("E", i)
+            out.append(targs[i + 2:j])
+            i = j + 1
+        elif targs.startswith("Lb", i):
+            out.append(f"mask={targs[i + 2]}")
+            i += 4
+        elif targs[i] in "fa":
+            out.append("f32" if targs[i] == "f" else "int8")
+            i += 1
+        elif targs[i] == "S":  # a substitution: a type named before (the last one, here)
+            out.append(out[-1] if out else "?")
+            i = targs.index("_", i) + 1
+        elif targs[i].isdigit():
+            n = re.match(r"\d+", targs[i:]).group()
+            name = targs[i + len(n):i + len(n) + int(n)]
+            out.append("bf16" if "bfloat16" in name else name)
+            i += len(n) + int(n)
+        else:
+            i += 1
+    return out
+
+
 def ptxas_report(log: str) -> list[str]:
     """One line per compiled function from nvcc's -Xptxas -v output:
     registers, shared memory and spills."""
@@ -187,11 +260,7 @@ def ptxas_report(log: str) -> list[str]:
         if m:
             n = int(m.group(1))
             base, rest = m.group(2)[:n], m.group(2)[n:]
-            targs = rest.split("EEv")[0] if rest.startswith("I") else ""
-            args = re.findall(r"Li(\d+)E", targs)
-            if "bfloat16" in targs or re.search(r"[EI]f(?:L|$)", targs):
-                args.append("bf16" if "bfloat16" in targs else "f32")
-            args += [f"mask={b}" for b in re.findall(r"Lb([01])E", targs)]
+            args = _template_args(rest.split("EEv")[0]) if rest.startswith("I") else []
             name = base + (f"<{','.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -852,6 +921,141 @@ def windowed_kernel_phase(torch, card_line: str) -> dict:
     return results
 
 
+def _int8_pool(torch, g, n_phys, P, Hkv, D, dev):
+    """Random int8 code pools and positive float32 (page, head) scales."""
+    codes = [torch.randint(-127, 128, (n_phys, P, Hkv, D), generator=g, device=dev).to(
+        torch.int8) for _ in range(2)]
+    scales = [0.01 + 0.04 * torch.rand(n_phys, Hkv, generator=g, device=dev) for _ in range(2)]
+    return codes + scales
+
+
+def ring_int8_kernel_phase(torch, card_line: str) -> dict:
+    """The two kernels of the ring and int8 paths against their plain
+    versions: decode_attention at RecurrentGemma-9B's decode shape (B 2, 16
+    query heads over 1 kv head of 256, a ring of 2048 wrapped at position
+    RG_DECODE_POS, window 2048) and at OLMo-1B's ring shape (B 4, 16 heads of
+    128, a ring of 256 wrapped), plain, with a softcap and in bf16, each
+    also timed beside one SDPA call (float32, the slot mask broadcast); the
+    int8 paged partials at OLMo-1B's decode shape and at StarCoder2-3B's (G
+    12, two slots past the window, their dead pages retired). Then the
+    banded kernel at RecurrentGemma-9B's prefill shape (S 3000, D 256: the
+    DMAX 256 instance), timed beside SDPA, and bit for bit the flash kernel
+    there. Returns the figures of the main paths' shapes for the kernels
+    line."""
+    from repro_torch.kernels import ops, paged_attention
+    from repro_torch.models.attention import AttnSpec, ring_valid
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    results = {}
+    decode_cases = {
+        # name: B, Hkv, G, D, W, position, window, softcap, dtype
+        "decode_attention": (RG_BATCH, 1, 16, 256, RG_WINDOW, RG_DECODE_POS, RG_WINDOW, 0.0,
+                             torch.float32),
+        "decode_attention/olmo_ring": (4, 16, 1, 128, 256, 300, 0, 0.0, torch.float32),
+        "decode_attention/olmo_ring_softcap": (4, 16, 1, 128, 256, 300, 0, 30.0, torch.float32),
+        "decode_attention/olmo_ring_bf16": (4, 16, 1, 128, 256, 300, 0, 0.0, torch.bfloat16),
+    }
+    for name, (B, Hkv, G, D, W, pos, window, softcap, dtype) in decode_cases.items():
+        Hq = Hkv * G
+        q = torch.randn(B, 1, Hq, D, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, W, Hkv, D, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, W, Hkv, D, generator=g, device=dev).to(dtype)
+        spec = AttnSpec(True, window, softcap)
+        valid = ring_valid(torch.tensor(pos, device=dev), W, spec)
+        n_valid = float(valid.sum())
+        qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+        library = None if softcap else (
+            lambda qf=qf, kf=kf, vf=vf, m=valid[None, None, None, :], gqa=Hq != Hkv:
+            F.scaled_dot_product_attention(qf, kf, vf, attn_mask=m, enable_gqa=gqa))
+        size = q.element_size()
+        # q in and out, the valid slots' K and V rows, the mask
+        nbytes = size * (2 * B * Hq * D + 2 * B * n_valid * Hkv * D) + W
+        results[name] = _check_and_time(
+            torch, name, lambda a=(q, k, v, valid, spec): ops.decode_attention(*a),
+            lambda a=(q, k, v, valid, spec): ops.decode_attention_ref(*a), library,
+            [B, Hkv, G, D, W, pos, window, softcap, str(dtype)], nbytes,
+            4.0 * B * Hq * D * n_valid, BF16_OPS_PER_S if dtype == torch.bfloat16
+            else FP32_OPS_PER_S, card_line, bf16=dtype == torch.bfloat16,
+            library_computes="SDPA, float32, the slot mask broadcast")
+
+    def quant_case(name, q, table, pos, n_phys, P, window):
+        B, Hkv, G, D = q.shape
+        kq, vq, ks, vs = _int8_pool(torch, g, n_phys, P, Hkv, D, dev)
+        n_table = table.shape[1]
+        kpos0 = torch.arange(n_table, device=dev) * P  # first position of each page
+        live = (table != 0) & (kpos0[None] <= pos[:, None])
+        if window:
+            live &= kpos0[None] + P - 1 > pos[:, None] - window
+        n_live = float(live.sum())
+        # q, the live pages' codes and scales, the table and positions in;
+        # every table page's partial out
+        nbytes = (4.0 * (q.numel() + B * n_table + B) + n_live * Hkv * (2 * P * D + 8)
+                  + 4.0 * B * Hkv * n_table * G * (D + 2))
+        a = (q, kq, vq, ks, vs, table, pos)
+        return _check_and_time(
+            torch, name, lambda: paged_attention.paged_attention_partials_quant(*a, window=window),
+            lambda: paged_attention.paged_attention_partials_quant_reference(*a, window=window),
+            None, [B, Hkv, G, D, P, n_table, n_phys, window, "int8"], nbytes,
+            4.0 * G * D * P * n_live * Hkv, FP32_OPS_PER_S, card_line,
+            pairs=lambda out, ref: _partial_pairs(torch, name, out, ref))
+
+    # OLMo-1B's decode: batch 4, 32 table pages of 8, slots at 217, 100 and 37
+    # with their whole allocation, the last slot parked
+    B, n_table, n_phys, P = 4, 32, 129, 8
+    q = torch.randn(B, 16, 1, 128, generator=g, device=dev)
+    ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
+    table = torch.zeros(B, n_table, dtype=torch.int32, device=dev)
+    pos = torch.zeros(B, dtype=torch.int32, device=dev)
+    for b, p in enumerate((217, 100, 37)):
+        table[b] = ids[b * n_table:(b + 1) * n_table]
+        pos[b] = p
+    results["paged_attention_quant"] = quant_case("paged_attention_quant", q, table, pos,
+                                                  n_phys, P, 0)
+    # StarCoder2-3B's decode: two slots 31 tokens into prompts of 5000 and
+    # 6000, whole pages past the window retired
+    W = 4096
+    n_table = -(-(max(SC_LENGTHS) + SC_MAX_NEW) // SC_PAGE)
+    n_phys = 1 + 2 * n_table
+    q = torch.randn(2, 2, 12, 128, generator=g, device=dev)
+    ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
+    table = torch.zeros(2, n_table, dtype=torch.int32, device=dev)
+    pos = torch.tensor([SC_LENGTHS[0] + SC_MAX_NEW - 1, SC_LENGTHS[1] + SC_MAX_NEW - 1],
+                       dtype=torch.int32, device=dev)
+    for b in range(2):
+        need = -(-(SC_LENGTHS[b] + SC_MAX_NEW) // SC_PAGE)
+        table[b, :need] = ids[b * n_table:b * n_table + need]
+        table[b, :(int(pos[b]) - W) // SC_PAGE] = 0  # retired
+    results["paged_attention_quant/starcoder2"] = quant_case(
+        "paged_attention_quant/starcoder2", q, table, pos, n_phys, SC_PAGE, W)
+
+    # the banded kernel at RecurrentGemma-9B's prefill (the wave's width): D 256
+    S, Hq, Hkv, D, W = max(RG_LENGTHS[:RG_BATCH]), 16, 1, 256, RG_WINDOW
+    q = torch.randn(RG_BATCH, S, Hq, D, generator=g, device=dev)
+    k = torch.randn(RG_BATCH, S, Hkv, D, generator=g, device=dev)
+    v = torch.randn(RG_BATCH, S, Hkv, D, generator=g, device=dev)
+    qpos = torch.arange(S, dtype=torch.int32, device=dev)
+    spec = AttnSpec(True, W, 0.0)
+    vis = (qpos[:, None] >= qpos[None, :]) & (qpos[:, None] - qpos[None, :] < W)
+    qf, kf, vf = (x.transpose(1, 2) for x in (q, k, v))
+    a = (q, k, v, qpos, qpos)
+    results["local_attention/recurrentgemma"] = _check_and_time(
+        torch, "local_attention/recurrentgemma", lambda: ops.local_attention(*a, spec),
+        lambda: ops.local_attention_ref(*a, spec),
+        lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=vis, enable_gqa=True),
+        [RG_BATCH, S, S, Hq, Hkv, D, 0, W, "float32"],
+        4.0 * (2 * q.numel() + k.numel() + v.numel() + 2 * S),
+        4.0 * D * Hq * RG_BATCH * float(vis.sum()), FP32_OPS_PER_S, card_line,
+        library_computes="SDPA, float32, the boolean band mask")
+    same = torch.equal(ops.local_attention(*a, spec), ops.flash_attention(*a, spec))
+    emit({"phase": "identities", "bitwise_equal": {
+        f"local == flash ({S}, D 256, window {W})": same}})
+    if not same:
+        fail("local attention at D 256 is not bit for bit flash attention")
+    return results
+
+
 def _first_divergence(a, b):
     """Index of the first token where two streams differ, or None."""
     return next((i for i, (x, y) in enumerate(zip(a.out, b.out)) if x != y), None)
@@ -868,7 +1072,8 @@ def serving_phase(torch, card_line: str) -> tuple[dict, dict]:
     that joined mid-stream, rerun solo on cuda, gives the same tokens; the
     launches must be 16 per prefill and 16 per decode round. Times each
     prefill (by bucket width) and decode round with a device sync around
-    it. Returns the cuda run's launches and figures."""
+    it. Then the same requests on int8 page pools (`_int8_serving`).
+    Returns the launches of the float and of the int8 cuda run."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -955,6 +1160,102 @@ def serving_phase(torch, card_line: str) -> tuple[dict, dict]:
     serve_trace(torch, card_line, lambda: serve("cuda", [
         Request(uid=i, prompt=p, max_new=SERVE_MAX_NEW) for i, p in enumerate(prompts)]),
         stats_c["decode_rounds"])
+    int8_launches = _int8_serving(torch, np, card_line, model, serve, prompts, timings,
+                                  done_c)
+    return launches, int8_launches
+
+
+def _pool_bytes(cfg, num_pages: int, page_size: int, dtype) -> int:
+    """Bytes of the model's page pools (codes and scales), on the meta
+    device."""
+    from repro_torch.models import attention as attn_lib
+
+    pool = attn_lib.init_paged_kv_cache(cfg, num_pages, page_size, dtype, "meta",
+                                        layers=cfg.n_layers)
+    return sum(t.numel() * t.element_size() for t in pool)
+
+
+def _int8_serving(torch, np, card_line: str, model, serve, prompts, timings, done_f32) -> dict:
+    """The int8 page pools at OLMo-1B's full width: the serving phase's 8
+    requests with Model.kv_dtype = torch.int8 (prefix sharing forced off) on
+    backend cuda (launch counts set to 0 just before, read just after) and
+    on reference: the same tokens (or a top-2 tie), logits within
+    LOGIT_TOL_INT8, the pools' codes at most one step apart (the count that
+    differ is printed), equal counters, 0 prefix hits, one flash launch a
+    layer per request and one int8-partials launch a layer per decode
+    round. Prints the pools'
+    bytes beside the float32 pools' and the share of tokens equal to the
+    float32 run's (a figure, not a check). Returns the cuda run's
+    launches."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import Request
+
+    cfg = model.cfg
+    model.kv_dtype = torch.int8
+    plain_decode, last = model.decode_step, {}
+
+    def keep_cache(params, cache, batch, **kw):  # the pools as the run leaves them
+        out = plain_decode(params, cache, batch, **kw)
+        last["cache"] = out[1]
+        return out
+
+    model.decode_step = keep_cache
+    try:
+        undo = _time_model_calls(torch, model, timings)
+        runs = {}
+        for backend in ("cuda", "reference"):
+            serve(backend, [Request(uid=-1, prompt=prompts[1], max_new=2)], batch_size=1)
+            timings.clear()
+            if backend == "cuda":
+                reset_launches()
+            done, stats, wall = serve(backend, [Request(uid=i, prompt=p, max_new=SERVE_MAX_NEW)
+                                                for i, p in enumerate(prompts)])
+            launches = dict(LAUNCHES)
+            runs[backend] = (done, stats, launches, last.pop("cache"))
+            emit({"phase": "serve", "arch": cfg.name, "kv_dtype": "int8", "backend": backend,
+                  **_serve_figures(timings, stats, done, wall),
+                  "launches": launches if backend == "cuda" else None, "card": card_line})
+        undo()
+    finally:
+        model.kv_dtype, model.decode_step = None, plain_decode
+    (done_c, stats_c, launches, cache_c), (done_r, stats_r, _, cache_r) = \
+        runs["cuda"], runs["reference"]
+    if [q.uid for q in done_c] != [q.uid for q in done_r] or stats_c != stats_r:
+        fail(f"int8 serve: the backends scheduled differently: {stats_c} vs {stats_r}")
+    # the pools of the two runs, trash page 0 left out (nobody's): codes at
+    # most one step apart, scales within float rounding
+    codes_differ, codes_total, scale_rel = 0, 0, 0.0
+    for pool_c, pool_r in zip(cache_c["blocks"], cache_r["blocks"]):
+        for a, b in zip(pool_c["kv"], pool_r["kv"]):
+            a, b = a[:, 1:], b[:, 1:]
+            if a.dtype == torch.int8:
+                diff = (a.int() - b.int()).abs()
+                if int(diff.max()) > 1:
+                    fail(f"int8 serve: pool codes differ by {int(diff.max())} steps")
+                codes_differ += int((diff > 0).sum())
+                codes_total += diff.numel()
+            else:
+                scale_rel = max(scale_rel, float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()))
+    worst, parted = _compare_streams(np, "int8 serve", done_c, done_r, SERVE_MAX_NEW,
+                                     LOGIT_TOL_INT8)
+    want = {"flash_attention": cfg.n_layers * len(prompts), "paged_attention": 0,
+            "paged_attention_quant": cfg.n_layers * stats_c["decode_rounds"]}
+    got = {k: launches[k] for k in want}
+    if got != want or stats_c["prefix_hits"] != 0:
+        fail(f"int8 serve: the cuda run launched {got} with {stats_c['prefix_hits']} prefix "
+             f"hits, its schedule predicts {want} and 0")
+    by_uid = {q.uid: q.out for q in done_f32}
+    same = sum(a == b for q in done_c for a, b in zip(q.out, by_uid[q.uid]))
+    n_pages = 1 + SERVE_BATCH * -(-SERVE_MAX_LEN // 8)  # the engine's default pool
+    emit({"phase": "serve_compare", "arch": cfg.name, "kv_dtype": "int8",
+          "same_tokens": not parted, "parted": parted, "max_logit_diff_rel": worst,
+          "logit_tol": LOGIT_TOL_INT8, "pool_codes_one_step_apart": codes_differ,
+          "pool_codes": codes_total, "pool_scales_max_rel_diff": scale_rel,
+          "prefix_hits": stats_c["prefix_hits"],
+          "decode_rounds": stats_c["decode_rounds"], "launches": got, "predicted": want,
+          "pool_bytes_int8": _pool_bytes(cfg, n_pages, 8, torch.int8),
+          "pool_bytes_float32": _pool_bytes(cfg, n_pages, 8, torch.float32),
+          "share_of_tokens_equal_to_float32_run": same / sum(len(q.out) for q in done_c)})
     return launches
 
 
@@ -1054,13 +1355,14 @@ def _serve_figures(timings: list, stats: dict, done: list, wall: float) -> dict:
             "stats": stats, "prefill_ms_by_width": prefill_ms,
             "decode_ms_per_round_mean": 1e3 * sum(decode_s) / len(decode_s),
             "decode_ms_per_round_min": 1e3 * min(decode_s), "decode_rounds": len(decode_s),
-            "decode_tokens_per_s": stats["slot_rounds"] / sum(decode_s),
+            "decode_tokens_per_s": (n_tok - len(done)) / sum(decode_s),
             "finish_order": [q.uid for q in done]}
 
 
-def _compare_streams(np, what: str, done, done_ref, max_new: int) -> tuple[float, list]:
+def _compare_streams(np, what: str, done, done_ref, max_new: int,
+                     logit_tol: float = LOGIT_TOL) -> tuple[float, list]:
     """Tokens of two runs equal, or parting only at a top-2 tie within
-    TIE_MARGIN; logits within LOGIT_TOL up to the first parting. Returns
+    TIE_MARGIN; logits within `logit_tol` up to the first parting. Returns
     (the largest relative logit difference, the partings)."""
     worst, parted = 0.0, []
     by_uid = {q.uid: q for q in done_ref}
@@ -1080,8 +1382,8 @@ def _compare_streams(np, what: str, done, done_ref, max_new: int) -> tuple[float
             parted.append({"uid": q.uid, "token": i, "top2_margin": margin})
             if margin > TIE_MARGIN:
                 fail(f"{what}: request {q.uid} parts at token {i} with a top-2 margin {margin}")
-    if worst > LOGIT_TOL:
-        fail(f"{what}: logits differ by {worst} > {LOGIT_TOL} (relative to 1+|b|)")
+    if worst > logit_tol:
+        fail(f"{what}: logits differ by {worst} > {logit_tol} (relative to 1+|b|)")
     return worst, parted
 
 
@@ -1224,6 +1526,132 @@ def starcoder_phase(torch, card_line: str) -> dict:
     return {"unchunked": runs["cuda", 0][2], "chunked": runs["cuda", SC_CHUNK][2]}
 
 
+def recurrent_phase(torch, card_line: str) -> dict:
+    """The ring path at RecurrentGemma-9B's full width (38 layers: 26 RG-LRU
+    blocks and 12 local-attention blocks of 16 query heads over 1 kv head of
+    256, window 2048; d_model 4096, LRU width 4096, vocab 256,000 tied),
+    float32, random weights from SEED (34.3 GB, made on the card):
+    ServeEngine(batch_size=RG_BATCH, max_len=RG_MAX_LEN) at cache "auto",
+    which resolves to the ring, serves RG_LENGTHS: a wave of two prompts past
+    the window (the ring roll runs; the ring of 2048 wraps) and a third that
+    joins the first one's slot when it finishes (a left-padded prefill at the
+    batch's position). On backend cuda (launch counts set to 0 just before,
+    read just after) and on reference: the same tokens (or a top-2 tie),
+    logits within LOGIT_TOL, the same prefill widths and finish order, and
+    on cuda exactly the local_attention and decode_attention launches
+    predicted before the runs; then the cuda run under torch.profiler.
+    Returns the cuda run's launches."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServeConfig, ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the StarCoder2-3B phase's parameters are gone
+    dev = torch.device("cuda")
+    cfg = get_config("recurrentgemma-9b")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    kinds = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
+    n_local = kinds.count("local")
+    emit({"phase": "serve_model", "arch": cfg.name, "params": n_params,
+          "param_bytes": 4 * n_params, "init_s": time.perf_counter() - t0,
+          "layers": cfg.n_layers, "rglru_layers": kinds.count("rglru"),
+          "local_layers": n_local, "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "window": cfg.sliding_window, "lru_width": cfg.rglru.lru_width,
+          "padded_vocab": cfg.padded_vocab, "memory_allocated": torch.cuda.memory_allocated()})
+    r = np.random.default_rng(SEED + 2)
+    prompts = [r.integers(0, cfg.vocab_size, n).astype(np.int32) for n in RG_LENGTHS]
+
+    def serve(backend, reqs):
+        eng = ServeEngine(model, params, backend=backend, device=dev,
+                          config=ServeConfig(batch_size=RG_BATCH, max_len=RG_MAX_LEN,
+                                             trace_logits=True))
+        if eng.cache_mode != "ring":
+            fail(f"recurrentgemma serve: cache 'auto' resolved to {eng.cache_mode}, not ring")
+        t = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        return done, eng.prefill_widths, time.perf_counter() - t
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_new=n)
+                for i, (p, n) in enumerate(zip(prompts, RG_MAX_NEW))]
+
+    # predicted before the runs: the wave prefills at its longest prompt; the
+    # first request drains after max_new - 1 rounds, the third joins its
+    # slot at the position reached and needs max_new - 1 rounds more, the
+    # second drains last; one local_attention launch a local layer per
+    # prefill, one decode_attention launch a local layer per round
+    wave = max(RG_LENGTHS[:RG_BATCH])
+    first_done = RG_MAX_NEW[0] - 1
+    rounds = max(RG_MAX_NEW[1] - 1, first_done + RG_MAX_NEW[2] - 1)
+    widths = {wave, wave + first_done}
+    predicted = {"local_attention": 2 * n_local, "decode_attention": n_local * rounds,
+                 "flash_attention": 0, "paged_attention": 0, "paged_attention_quant": 0}
+    emit({"phase": "recurrentgemma_prediction", "decode_rounds": rounds,
+          "prefill_widths": sorted(widths), "finish_order": [0, 2, 1], "launches": predicted})
+    for backend in ("cuda", "reference"):  # warm-up: cuBLAS at these widths, the kernels' load
+        serve(backend, [Request(uid=-1, prompt=prompts[2][:64], max_new=2)])
+    timings: list = []
+    undo = _time_model_calls(torch, model, timings)
+    runs = {}
+    for backend in ("cuda", "reference"):
+        timings.clear()
+        reset_launches()
+        done, prefill_widths, wall = serve(backend, requests())
+        launches = dict(LAUNCHES)
+        n_rounds = sum(kind == "decode" for kind, _, _ in timings)
+        runs[backend] = (done, prefill_widths, launches, n_rounds)
+        emit({"phase": "serve", "arch": cfg.name, "backend": backend, "cache": "ring",
+              **_serve_figures(timings, {"decode_rounds": n_rounds}, done, wall),
+              "prefill_widths": sorted(prefill_widths),
+              "launches": launches if backend == "cuda" else None, "card": card_line})
+    undo()
+    (done_c, widths_c, launches, rounds_c), (done_r, widths_r, _, rounds_r) = \
+        runs["cuda"], runs["reference"]
+    order = [q.uid for q in done_c]
+    if order != [q.uid for q in done_r] or order != [0, 2, 1] or widths_c != widths_r \
+            or widths_c != widths or rounds_c != rounds_r or rounds_c != rounds:
+        fail(f"recurrentgemma serve: finish order {order} / {[q.uid for q in done_r]}, prefill "
+             f"widths {widths_c} / {widths_r}, rounds {rounds_c} / {rounds_r}; predicted "
+             f"[0, 2, 1], {widths}, {rounds}")
+    got = {k: launches[k] for k in predicted}
+    if got != predicted:
+        fail(f"recurrentgemma serve: the cuda run launched {got}, predicted {predicted}")
+    by_uid = {q.uid: q for q in done_r}
+    worst, parted = 0.0, []
+    for q in done_c:  # each request's own budget
+        w, p = _compare_streams(np, "recurrentgemma serve", [q], [by_uid[q.uid]],
+                                RG_MAX_NEW[q.uid])
+        worst, parted = max(worst, w), parted + p
+    emit({"phase": "serve_compare", "arch": cfg.name, "cache": "ring", "same_tokens": not parted,
+          "parted": parted, "max_logit_diff_rel": worst, "logit_tol": LOGIT_TOL,
+          "tie_margin": TIE_MARGIN, "decode_rounds": rounds_c,
+          "prefill_widths": sorted(widths_c), "launches": got, "predicted": predicted,
+          "joined_uid": 2, "joined_entry_width": by_uid[2].entry_width})
+    prof = _device_profile(torch, lambda: serve("cuda", requests()), top=15)
+    emit({"phase": "serve_trace", "what": "3 requests, RecurrentGemma-9B full width, ring, "
+          "backend cuda", "wall_s_traced": prof["wall_s"],
+          "device_busy_s": prof["busy_us"] * 1e-6, "device_idle_share": prof["idle_share"],
+          "device_kernels": prof["kernels"], "decode_rounds": rounds,
+          "blocking_runtime_calls": prof["blocking"],
+          "top_host_ops_self_us": prof["top_host_ops"],
+          "top_device_kernels_us": prof["top_device_kernels"], "card": card_line})
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def serve_trace(torch, card_line: str, serve_once, rounds: int) -> None:
     """Where the serving run's time goes on the card: the same 8-request run
     on `cuda` once under sync-debug mode (every synchronizing PyTorch call
@@ -1282,9 +1710,11 @@ def main() -> None:
     kern = kernel_phase(torch, card_line)
     kern.update(attention_kernel_phase(torch, card_line))
     kern.update(windowed_kernel_phase(torch, card_line))
-    serve_launches = serving_phase(torch, card_line)
+    kern.update(ring_int8_kernel_phase(torch, card_line))
+    serve_launches, int8_launches = serving_phase(torch, card_line)
     sparse_launches = block_sparse_phase(torch, card_line)
     sc_launches = starcoder_phase(torch, card_line)
+    rg_launches = recurrent_phase(torch, card_line)
     determinism_phase(torch)
     ds, cfg = dataset_phase(torch)
     loop_phase(torch, card_line, ds, cfg, "retrain")
@@ -1296,7 +1726,9 @@ def main() -> None:
                      "paged_attention": serve_launches["paged_attention"],
                      "block_sparse_attention": sparse_launches["block_sparse_attention"],
                      "local_attention": sc_launches["unchunked"]["local_attention"],
-                     "chunked_prefill": sc_launches["chunked"]["chunked_prefill"]})
+                     "chunked_prefill": sc_launches["chunked"]["chunked_prefill"],
+                     "decode_attention": rg_launches["decode_attention"],
+                     "paged_attention_quant": int8_launches["paged_attention_quant"]})
     from repro_torch.kernels.build import KERNELS
 
     emit({"kernels": [

@@ -1,5 +1,6 @@
 """The port's own copy of `repro.configs.base`: the architecture config, its
-registry and `reduced` (the port imports nothing of `repro`).
+registry and `reduced` (the port imports nothing of `repro`), with the
+RG-LRU sub-config.
 
 Only the architectures the port can run are registered. Asking `get_config`
 for one `repro` registers but the port cannot run yet raises and names
@@ -14,6 +15,15 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, replace
 from typing import Callable, Optional
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """`repro`'s RG-LRU block config (RecurrentGemma's recurrent blocks)."""
+
+    lru_width: int = 0  # 0 => d_model
+    conv_width: int = 4
+    block_width_divisor: int = 1
 
 
 @dataclass(frozen=True)
@@ -39,11 +49,11 @@ class ModelConfig:
     mlp_kind: str = "swiglu"  # swiglu | gelu
     # layer pattern
     block_pattern: tuple = ("attn",)
-    # mixtures / recurrences: repro's MoEConfig / SSMConfig / RGLRUConfig,
-    # always None for the archs the port registers
+    # mixtures / recurrences: repro's MoEConfig / SSMConfig (never set on
+    # the archs the port registers) and RGLRUConfig
     moe: Optional[object] = None
     ssm: Optional[object] = None
-    rglru: Optional[object] = None
+    rglru: Optional[RGLRUConfig] = None
     # encoder-decoder (whisper)
     is_encoder_decoder: bool = False
     n_encoder_layers: int = 0
@@ -69,7 +79,8 @@ class ModelConfig:
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family variant for CPU tests (`repro`'s rule, for the
-    archs the port registers: no MoE, SSM or RG-LRU sub-config to shrink)."""
+    archs the port registers: the RG-LRU width shrinks to 64; no MoE or SSM
+    sub-config to shrink)."""
     updates: dict = dict(
         n_layers=max(2, len(cfg.block_pattern)),
         d_model=64,
@@ -83,6 +94,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         encoder_seq=16 if cfg.is_encoder_decoder else 0,
         remat=False,
     )
+    if cfg.rglru is not None:
+        updates["rglru"] = replace(cfg.rglru, lru_width=64)
     updates.update(overrides)
     return replace(cfg, name=cfg.name + "-smoke", **updates)
 
@@ -90,9 +103,9 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 # archs `repro` registers that the port cannot run yet (ROADMAP.md queue 1,
-# items 8-9: MoE, recurrent, SSM, enc-dec, M-RoPE)
+# items 8-9: MoE, SSM, enc-dec, M-RoPE)
 NOT_PORTED = ("granite-8b", "mamba2-370m", "mixtral-8x22b", "qwen2-72b", "qwen2-vl-72b",
-              "qwen3-moe-30b-a3b", "recurrentgemma-9b", "whisper-tiny")
+              "qwen3-moe-30b-a3b", "whisper-tiny")
 
 
 def register(name: str):

@@ -30,6 +30,12 @@ Serving ops, in the model layout (q [B,S,Hq,D]; k, v [B,S,Hkv,D]):
                                                  [nq, nk] block mask
   paged_decode_attention(q, k_pages, v_pages, pages, pos, spec)
                                               -> [B,1,Hq,D]   every decode step
+                                                 over the paged cache
+  quant_paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, pages,
+                               pos, spec)     -> [B,1,Hq,D]   the same over
+                                                 int8 page pools
+  decode_attention(q, k, v, valid, spec)      -> [B,1,Hq,D]   every decode step
+                                                 over the ring cache
 
   reference  plain PyTorch on any device: the semantic oracle.
   cuda       the hand-written kernels of `repro_torch.kernels`. Each wrapper
@@ -168,6 +174,31 @@ class Backend:
         if self.name == "reference":
             return ops.paged_decode_attention_ref(q, k_pages, v_pages, pages, pos, spec)
         return ops.paged_decode_attention(q, k_pages, v_pages, pages, pos, spec)
+
+    def quant_paged_decode_attention(self, q, k_pages, v_pages, k_scale, v_scale, pages, pos,
+                                     spec) -> torch.Tensor:
+        """`paged_decode_attention` over int8 pools: k_pages / v_pages
+        [N_pages, P, Hkv, D] int8 codes, k_scale / v_scale [N_pages, Hkv]
+        float32 per-(page, head) scales, dequantized where the pages are
+        read (no dense float copy of the pool)."""
+        from repro_torch.kernels import ops
+
+        if self.name == "reference":
+            return ops.quant_paged_decode_attention_ref(q, k_pages, v_pages, k_scale, v_scale,
+                                                        pages, pos, spec)
+        return ops.quant_paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, pages,
+                                                pos, spec)
+
+    def decode_attention(self, q, k, v, valid, spec) -> torch.Tensor:
+        """One-token attention over the ring cache: q [B,1,Hq,D]; k, v
+        [B,W,Hkv,D] the ring's contents (dequantized for an int8 ring);
+        valid [W] the attendable slots (`models.attention.ring_valid`) ->
+        [B,1,Hq,D]."""
+        from repro_torch.kernels import ops
+
+        if self.name == "reference":
+            return ops.decode_attention_ref(q, k, v, valid, spec)
+        return ops.decode_attention(q, k, v, valid, spec)
 
     def unsharded(self) -> "Backend":
         """The backend for small side computations (the validation gradient).

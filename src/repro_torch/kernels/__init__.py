@@ -10,7 +10,11 @@ and the serving paths'.
                      replay step
   flash_attention    GQA flash attention, every prefill and tail prefill
   paged_attention    per-page decode partials through a block table, every
-                     decode step (merged by `combine_pages`)
+                     decode step (merged by `combine_pages`); its module also
+                     holds paged_attention_quant, the same over int8 pools
+                     with per-(page, head) scales
+  decode_attention   one-token attention over the ring cache with a slot
+                     mask, every decode step of a local / ring layer
   local_attention    banded flash attention (dead band tiles skipped), every
                      prefill of a sliding-window arch; its module also holds
                      block_sparse_attention (a caller's block mask)

@@ -21,12 +21,14 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parent / "_build"
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's nvcc where none is on PATH
 # each kernel (a launch count and a C entry point) -> the source it is built
-# from: `local_attention.cu` holds both banded kernels
+# from: `local_attention.cu` holds both banded kernels, `paged_attention.cu`
+# the float and the int8 paged partials
 KERNELS = {"lr_grad": "lr_grad", "lr_hvp": "lr_hvp", "minibatch_grad": "minibatch_grad",
            "infl_scores": "infl_scores", "replay_correction": "replay_correction",
            "flash_attention": "flash_attention", "paged_attention": "paged_attention",
            "local_attention": "local_attention", "block_sparse_attention": "local_attention",
-           "chunked_prefill": "chunked_prefill"}
+           "chunked_prefill": "chunked_prefill", "decode_attention": "decode_attention",
+           "paged_attention_quant": "paged_attention"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

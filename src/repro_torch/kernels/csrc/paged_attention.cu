@@ -28,6 +28,15 @@
 // and V rows of one head (2 * P * D * 4 bytes a page in float32) plus the
 // partials written; the 4 * G * P * D flops a page are far below the
 // float32 rate for G <= 8.
+//
+// The int8 mode (its own entry, chef_paged_attention_quant; replaces the TPU
+// kernel repro/kernels/paged_attention.py::paged_attention_partials_quant_pallas)
+// runs the same CTAs over int8 code pools with one float32 scale per (page,
+// kv head): a CTA reads its page's scalar scale[page, h] and widens each code
+// as code * scale into the float32 staging buffers (`_dequant_page`: one
+// exact int8 -> float32 conversion and one multiply); everything after is the
+// float kernel's partial, unchanged. The pool crosses memory at a quarter of
+// the float32 bytes; the trash page still gives the neutral partial unread.
 #include "attn_common.cuh"
 
 namespace chef {
@@ -45,9 +54,18 @@ struct PagedArgs {
   float* acc;           // [B, Hkv, n_pages, G, D]
   int Hkv, G, D, P, n_pages, window;
   float softcap, inv_softcap, scale;
+  const float* k_scale;  // int8 pools only: [N_pages, Hkv]
+  const float* v_scale;
 };
 
-template <typename T>
+// A pool element widened to float32: float and bf16 as they are, an int8 code
+// times its page's scale.
+__device__ __forceinline__ float widen(float x, float) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x, float) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(int8_t x, float s) { return static_cast<float>(x) * s; }
+
+// TQ: the type of q; TKV: the pools' (TQ itself, or int8_t with scales).
+template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kPagedThreads) paged_partials_kernel(PagedArgs a) {
   extern __shared__ float smem[];
   const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -70,16 +88,18 @@ __global__ void __launch_bounds__(kPagedThreads) paged_partials_kernel(PagedArgs
   float* Ks = Qs + G * D;   // [P][D]
   float* Vs = Ks + P * D;   // [P][D]
   float* Ss = Vs + P * D;   // [G][P]: scores, then p
-  const T* q = static_cast<const T*>(a.q) + ((int64_t)b * a.Hkv + h) * G * D;
+  const TQ* q = static_cast<const TQ*>(a.q) + ((int64_t)b * a.Hkv + h) * G * D;
   const int64_t row_stride = (int64_t)a.Hkv * D;  // from key t to key t + 1
   const int64_t base = (int64_t)page * P * row_stride + (int64_t)h * D;
-  const T* k = static_cast<const T*>(a.k_pages) + base;
-  const T* v = static_cast<const T*>(a.v_pages) + base;
+  const TKV* k = static_cast<const TKV*>(a.k_pages) + base;
+  const TKV* v = static_cast<const TKV*>(a.v_pages) + base;
+  const float ks = a.k_scale ? a.k_scale[(int64_t)page * a.Hkv + h] : 1.f;
+  const float vs = a.v_scale ? a.v_scale[(int64_t)page * a.Hkv + h] : 1.f;
   for (int i = tid; i < G * D; i += kPagedThreads) Qs[i] = to_f32(q[i]);
   for (int i = tid; i < P * D; i += kPagedThreads) {
     const int t = i / D, d = i % D;
-    Ks[i] = to_f32(k[t * row_stride + d]);
-    Vs[i] = to_f32(v[t * row_stride + d]);
+    Ks[i] = widen(k[t * row_stride + d], ks);
+    Vs[i] = widen(v[t * row_stride + d], vs);
   }
   __syncthreads();
 
@@ -122,16 +142,16 @@ __global__ void __launch_bounds__(kPagedThreads) paged_partials_kernel(PagedArgs
   }
 }
 
-template <typename T>
+template <typename TQ, typename TKV>
 cudaError_t launch_paged(const PagedArgs& a, int B, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)a.G * a.D + 2 * (size_t)a.P * a.D + a.G * a.P);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_partials_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        paged_partials_kernel<TQ, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(a.n_pages, a.Hkv, B);
-  paged_partials_kernel<T><<<grid, kPagedThreads, smem, stream>>>(a);
+  paged_partials_kernel<TQ, TKV><<<grid, kPagedThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -146,9 +166,28 @@ extern "C" int chef_paged_attention(const void* q, const void* k_pages, const vo
                                     float* acc, int B, int Hkv, int G, int D, int P,
                                     int n_pages, int window, float softcap, float inv_softcap,
                                     float scale, int bf16, void* stream) {
-  const chef::PagedArgs a{q, k_pages, v_pages, table,  pos,     m,           l,    acc, Hkv,
-                          G, D,       P,       n_pages, window, softcap, inv_softcap, scale};
+  const chef::PagedArgs a{q, k_pages, v_pages, table,  pos,     m,           l,     acc,
+                          Hkv, G, D,  P,      n_pages, window, softcap, inv_softcap, scale,
+                          nullptr, nullptr};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? chef::launch_paged<__nv_bfloat16>(a, B, st)
-                               : chef::launch_paged<float>(a, B, st));
+  return static_cast<int>(bf16 ? chef::launch_paged<__nv_bfloat16, __nv_bfloat16>(a, B, st)
+                               : chef::launch_paged<float, float>(a, B, st));
+}
+
+// The int8 mode: k_pages, v_pages [N_pages, P, Hkv, D] int8 codes, k_scale,
+// v_scale [N_pages, Hkv] float32; q float32, or bfloat16 when bf16 != 0; the
+// rest as chef_paged_attention.
+extern "C" int chef_paged_attention_quant(const void* q, const void* k_pages,
+                                          const void* v_pages, const float* k_scale,
+                                          const float* v_scale, const int* table,
+                                          const int* pos, float* m, float* l, float* acc, int B,
+                                          int Hkv, int G, int D, int P, int n_pages, int window,
+                                          float softcap, float inv_softcap, float scale, int bf16,
+                                          void* stream) {
+  const chef::PagedArgs a{q,   k_pages, v_pages, table,  pos,     m,           l,     acc,
+                          Hkv, G,       D,       P,      n_pages, window,      softcap,
+                          inv_softcap,  scale,   k_scale, v_scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? chef::launch_paged<__nv_bfloat16, int8_t>(a, B, st)
+                               : chef::launch_paged<float, int8_t>(a, B, st));
 }

@@ -4,24 +4,28 @@
 The model keeps q [B, S, Hq, D] and k / v [B, S, Hkv, D]; the flash forms
 take the kernel layout [B, H, S, D], which here is a transposed view (no
 copy: the CUDA kernel reads through strides). The paged pools already carry
-the kernel layout [N_pages, P, Hkv, D]; only q is regrouped to
-[B, Hkv, G, D].
+the kernel layout [N_pages, P, Hkv, D], and the decode kernel reads the ring
+[B, W, Hkv, D] as it is; for both only q is regrouped to [B, Hkv, G, D].
 
 Each op has a kernel form (`flash_attention`, `local_attention`,
-`block_sparse_attention`, `chunked_prefill`, `paged_decode_attention`: the
-CUDA kernel on a CUDA tensor) and a reference form (`*_ref`: the plain
-version on any device). Both forms go through the same adapter, so they see
-the same layouts, positions and merge.
+`block_sparse_attention`, `chunked_prefill`, `decode_attention`,
+`paged_decode_attention`, `quant_paged_decode_attention`: the CUDA kernel on
+a CUDA tensor) and a reference form (`*_ref`: the plain version on any
+device). Both forms go through the same adapter, so they see the same
+layouts, positions and merge.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import chunked_prefill as chunked_lib
+from repro_torch.kernels import decode_attention as decode_lib
 from repro_torch.kernels import local_attention as local_lib
 from repro_torch.kernels.flash_attention import flash_attention_reference
 from repro_torch.kernels.flash_attention import flash_attention as flash_attention_kernel
 from repro_torch.kernels.paged_attention import (combine_pages, paged_attention_partials,
+                                                 paged_attention_partials_quant,
+                                                 paged_attention_partials_quant_reference,
                                                  paged_attention_partials_reference)
 
 
@@ -129,6 +133,27 @@ def chunked_prefill_ref(q, k, v, qpos, kpos, spec, chunk: int) -> torch.Tensor:
     return chunked_prefill_finish(m, l, acc, q)
 
 
+def _decode(inner, q, k, v, valid, spec) -> torch.Tensor:
+    """q [B, 1, Hq, D] -> [B, Hkv, G, D] (a view), the ring as it is, and
+    back to [B, 1, Hq, D]."""
+    B, _, Hq, D = q.shape
+    Hkv = k.shape[2]
+    o = inner(q.reshape(B, Hkv, Hq // Hkv, D), k, v, valid, softcap=spec.logit_softcap)
+    return o.reshape(B, 1, Hq, D)
+
+
+def decode_attention(q, k, v, valid, spec) -> torch.Tensor:
+    """Kernel form: one-token attention over the ring cache. q [B,1,Hq,D];
+    k, v [B, W, Hkv, D]; valid [W] bool (`models.attention.ring_valid`) ->
+    [B,1,Hq,D]."""
+    return _decode(decode_lib.decode_attention, q, k, v, valid, spec)
+
+
+def decode_attention_ref(q, k, v, valid, spec) -> torch.Tensor:
+    """Reference form: the plain `_decode_cell` over every (b, kv head)."""
+    return _decode(decode_lib.decode_attention_reference, q, k, v, valid, spec)
+
+
 def _paged_layout(q, k_pages):
     """q [B, 1, Hq, D] -> [B, Hkv, G, D] (a view of the contiguous q)."""
     B, _, Hq, D = q.shape
@@ -160,3 +185,26 @@ def paged_decode_attention(q, k_pages, v_pages, pages, pos, spec) -> torch.Tenso
 def paged_decode_attention_ref(q, k_pages, v_pages, pages, pos, spec) -> torch.Tensor:
     """Reference form: the plain partials and the same merge."""
     return _paged(paged_attention_partials_reference, q, k_pages, v_pages, pages, pos, spec)
+
+
+def _quant_paged(partials, q, k_pages, v_pages, k_scale, v_scale, pages, pos,
+                 spec) -> torch.Tensor:
+    qg, _ = _paged_layout(q, k_pages)
+    m, l, acc = partials(qg, k_pages, v_pages, k_scale, v_scale, pages.to(torch.int32),
+                         pos.to(torch.int32), window=spec.window, softcap=spec.logit_softcap)
+    return paged_decode_finish(m, l, acc, q)
+
+
+def quant_paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, pages, pos,
+                                 spec) -> torch.Tensor:
+    """Kernel form: `paged_decode_attention` over int8 pools [N_pages, P,
+    Hkv, D] with scales [N_pages, Hkv], dequantized in the kernel."""
+    return _quant_paged(paged_attention_partials_quant, q, k_pages, v_pages, k_scale, v_scale,
+                        pages, pos, spec)
+
+
+def quant_paged_decode_attention_ref(q, k_pages, v_pages, k_scale, v_scale, pages, pos,
+                                     spec) -> torch.Tensor:
+    """Reference form: the plain int8 partials and the same merge."""
+    return _quant_paged(paged_attention_partials_quant_reference, q, k_pages, v_pages, k_scale,
+                        v_scale, pages, pos, spec)

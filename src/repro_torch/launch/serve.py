@@ -1,6 +1,6 @@
 """Batched serving command: initialises a model from a seed and serves a wave
-of greedy-decode requests through the paged `ServeEngine`, on the card
-unless `--device cpu` is given.
+of greedy-decode requests through `ServeEngine`, on the card unless
+`--device cpu` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --backend cuda
 
@@ -8,16 +8,22 @@ The flags and defaults are `repro.launch.serve`'s, plus `--device`. As
 there, the model is `reduced(get_config(arch))` with random weights from
 `--seed`, and the command returns (and logs) the same summary dict.
 `--backend` is `reference` (plain PyTorch) or `cuda` (the hand-written
-attention kernels). A sliding-window arch (`--arch starcoder2-3b`, or
-`--attn window:<W>`) prefills through the banded kernel and retires pages
-that slid out of its window; `--prefill_chunk N` > 0 prefills a KV span
-longer than N in chunks. Options whose paths are not ported yet (`--cache
-ring`, `--spec_k` > 1, `--kv_dtype int8`) raise NotImplementedError naming
-ROADMAP.md. As in `repro`, `--kv_dtype bf16` leaves the paged pools in the
-param dtype.
+attention kernels). `--cache auto` serves an attention-only arch from the
+paged cache and an arch with recurrent blocks (`--arch recurrentgemma-9b`)
+from the ring cache; `--cache ring` takes the ring for any arch. A
+sliding-window arch (`--arch starcoder2-3b`, or `--attn window:<W>`)
+prefills through the banded kernel and, paged, retires pages that slid out
+of its window; `--prefill_chunk N` > 0 prefills a KV span longer than N in
+chunks. `--kv_dtype int8` serves from int8 page pools (or an int8 ring);
+as in `repro`, `--kv_dtype bf16` leaves the paged pools in the param dtype
+and rounds the prefill's K/V through bf16. `--spec_k` > 1 is not ported yet
+and raises NotImplementedError naming ROADMAP.md.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
       --attn window:16 --prefill_chunk 16 --prompt_len 40 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+      --prompt_len 40 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --kv_dtype int8 --device cpu
 """
 from __future__ import annotations
 
@@ -47,8 +53,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt_len", type=int, default=32)
     ap.add_argument("--max_new", type=int, default=16)
     ap.add_argument("--backend", default="reference", help="reference | cuda")
-    ap.add_argument("--cache", default="auto",
-                    help="auto | paged | ring (ring is not ported yet)")
+    ap.add_argument("--cache", default="auto", help="auto | paged | ring")
     ap.add_argument("--page_size", type=int, default=8,
                     help="tokens per physical page (paged cache)")
     ap.add_argument("--share_prefix", action=argparse.BooleanOptionalAction, default=True,
@@ -67,8 +72,8 @@ def parser() -> argparse.ArgumentParser:
                     help="attention-pattern override: 'window:<W>' or 'full'; empty keeps "
                          "the arch pattern")
     ap.add_argument("--kv_dtype", default="", choices=["", "int8", "bf16"],
-                    help="KV cache dtype override: int8 (not ported yet), bf16, or empty = "
-                         "the model's param dtype")
+                    help="KV cache dtype override: int8, bf16, or empty = the model's "
+                         "param dtype")
     ap.add_argument("--retire_pages", action=argparse.BooleanOptionalAction, default=True,
                     help="free block-table pages that slid fully out of the attention "
                          "window (windowed archs only)")

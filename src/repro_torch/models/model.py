@@ -1,14 +1,18 @@
 """Public model API of the serving path (the port of `repro/models/model.py`
-for attention-only decoders):
+for decoders of attention and RG-LRU blocks):
 
     model = Model(get_config("olmo-1b"))          # on the card
     params = model.init(0)
-    logits, cache = model.prefill(params, {"tokens": tokens})
-    logits, cache = model.decode_step(params, paged_cache, {"tokens": nxt})
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=256)
+    logits, cache = model.decode_step(params, cache, {"tokens": nxt})
 
-Parameters live on `model.device` in `param_dtype`; every serving call
-routes its attention through the `Backend` it is given (`reference` |
-`cuda`; `reference` when none is).
+`decode_step` takes the ring cache `prefill` returns (one shared 0-dim
+position) or the paged cache of `init_paged_cache` (per-slot [B]
+positions). `kv_dtype = torch.int8` makes both caches int8: the ring
+quantized per token, the page pools per (page, head). Parameters live on
+`model.device` in `param_dtype`; every serving call routes its attention
+through the `Backend` it is given (`reference` | `cuda`; `reference` when
+none is).
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ class Model:
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.device = resolve_device(device)
-        # torch.int8 would select int8 page pools (not ported yet)
+        # the KV caches' dtype: None keeps the param dtype; torch.int8 selects
+        # the int8 ring and page pools
         self.kv_dtype = None
 
     # ------------------------------------------------------------------ init
@@ -39,8 +44,10 @@ class Model:
         return T.init_params(self.cfg, L.Creator(g, self.param_dtype, self.device))
 
     def init_cache(self, batch: int, seq_len: int, dtype=None, full: bool = False) -> dict:
+        """Ring cache of `seq_len` positions (window-bounded for local blocks
+        unless `full`), K/V in `kv_dtype` when set."""
         return T.init_cache(self.cfg, batch, seq_len, dtype or self.param_dtype, self.device,
-                            full=full)
+                            kv_dtype=self.kv_dtype, full=full)
 
     def init_paged_cache(self, batch: int, num_pages: int, page_size: int, table_pages: int,
                          dtype=None) -> dict:
@@ -69,9 +76,10 @@ class Model:
     # ----------------------------------------------------------------- serve
     def prefill(self, params, batch: dict, *, cache_len: Optional[int] = None, backend=None,
                 last_pos=None, full_cache: bool = False, prefill_chunk: int = 0):
-        """Full-prompt forward -> (logits [B, 1, V] at position -1, or at
-        `last_pos` [B] for right-padded prompts, and the dense KV cache of
-        capacity `cache_len` (default the prompt width))."""
+        """Full-prompt forward -> (logits [B, 1, V] at position -1, for
+        left-padded prompts, or at `last_pos` [B] for right-padded ones, and
+        the ring cache for `cache_len` positions (default the prompt width;
+        `full_cache` keeps every position of a windowed arch))."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         cache = self.init_cache(B, cache_len or S, full=full_cache)
@@ -110,12 +118,11 @@ class Model:
         return self._head(params, self._take(out.hidden, last_pos)), out.cache
 
     def decode_step(self, params, cache: dict, batch: dict, *, backend=None):
-        """One decode step over the paged cache: tokens [B, 1], each slot at
-        its own position cache["pos"] [B]; writes the new K/V into the pages
-        in place -> (logits [B, 1, V], the cache with pos + 1)."""
-        if cache["pos"].ndim != 1:
-            raise NotImplementedError("decode over the ring cache (one shared position) is "
-                                      "not ported to repro_torch yet; see ROADMAP.md queue 1")
+        """One decode step: tokens [B, 1] at the ring cache's shared position
+        (cache["pos"] a 0-dim tensor) or, over the paged cache, each slot at
+        its own position (cache["pos"] [B]); writes the new K/V (and steps
+        the recurrent states) in place -> (logits [B, 1, V], the cache with
+        pos + 1)."""
         out = T.run_stack(self.cfg, params, self._embed_in(params, batch), mode="decode",
                           cache=cache, pos=cache["pos"], backend=get_backend(backend))
         return self._head(params, out.hidden), out.cache

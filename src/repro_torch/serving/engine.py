@@ -1,41 +1,65 @@
-"""Continuous-batching greedy serving over a paged KV cache (the port of
-`repro/serving/engine.py`'s paged path).
+"""Continuous-batching greedy serving over a paged KV cache or a ring cache
+(the port of `repro/serving/engine.py`).
 
-Each admitted request gets pages from a shared physical pool for
-ceil((prompt + budget) / page_size) tokens, is prefilled alone at a
-power-of-two bucket of its prompt length (right-padded: the causal mask is
-the pad mask), and decodes at its own absolute positions; a block table
-maps each slot's logical pages to physical ones, page 0 being the trash
-page of parked slots and pad rows. A full-attention arch prefills through
-`Backend.flash_attention`, and every decode step goes through
-`Backend.paged_decode_attention`, so on backend `cuda` the attention
-kernels serve every token.
+Two cache disciplines, selected by `ServeConfig.cache`:
 
-Prefix sharing (`ServeConfig.share_prefix`, on by default): admission keys
-every full page a committed prompt covers in a prefix index (exact token
-bytes). A later prompt that extends an indexed page-aligned prefix aliases
-those pages in its block table and prefills only its unshared tail
-(`Model.prefill_tail`, at the solo run's kv width). Pages are refcounted on
-the host (mirrored on the card as `cache["refcount"]`): index entries and
-table rows each hold a reference, a page frees at zero, and a write aimed
-at a shared page first copies it (copy-on-write). Index entries are
-evicted newest chain first under pool pressure, least recently used first
-past `prefix_cap`. The pool and the index persist across `run()` waves, so
-a later wave's repeated prefix aliases pages an earlier wave prefilled.
+* ``paged`` (the default for attention-only decoder archs): each admitted
+  request gets pages from a shared physical pool for
+  ceil((prompt + budget) / page_size) tokens, is prefilled alone at a
+  power-of-two bucket of its prompt length (right-padded: the causal mask
+  is the pad mask), and decodes at its own absolute positions; a block
+  table maps each slot's logical pages to physical ones, page 0 being the
+  trash page of parked slots and pad rows. A full-attention arch prefills
+  through `Backend.flash_attention`, and every decode step goes through
+  `Backend.paged_decode_attention`.
+* ``ring`` (the default for archs with recurrent blocks, such as
+  RecurrentGemma-9B's RG-LRU layers; `repro`'s differential oracle on an
+  attention-only arch): one ring cache for the whole batch with ONE shared
+  position. A wave of up to batch_size requests is prefilled together,
+  left-padded to its longest prompt, into a ring of `max_len` positions
+  (the window's for local blocks, written at slot t % W); a request that
+  joins a freed slot mid-stream is prefilled left-padded to the batch's
+  current position, at the full batch width, and its slot of every cache
+  leaf (K/V and the RG-LRU states alike) is spliced into the running cache.
+  Every decode step goes through `Backend.decode_attention` with the
+  ring's slot mask.
+
+Prefix sharing (`ServeConfig.share_prefix`, on by default, paged only):
+admission keys every full page a committed prompt covers in a prefix index
+(exact token bytes). A later prompt that extends an indexed page-aligned
+prefix aliases those pages in its block table and prefills only its
+unshared tail (`Model.prefill_tail`, at the solo run's kv width). Pages are
+refcounted on the host (mirrored on the card as `cache["refcount"]`):
+index entries and table rows each hold a reference, a page frees at zero,
+and a write aimed at a shared page first copies it (copy-on-write). Index
+entries are evicted newest chain first under pool pressure, least recently
+used first past `prefix_cap`. The pool and the index persist across
+`run()` waves, so a later wave's repeated prefix aliases pages an earlier
+wave prefilled.
 
 Sliding-window archs prefill through `Backend.local_attention` (the banded
 kernel), and with `ServeConfig.prefill_chunk > 0` a prefill whose KV span
 exceeds the chunk goes through `Backend.chunked_prefill`. For a windowed arch
-the engine also retires pages (`ServeConfig.retire_pages`, on by default):
-after each decode round every block-table entry whose whole page has slid
-out of the window is pointed at the trash page and unpinned, freed once no
-table row or index entry holds it. Such a page's keys all fail the decode
-kernel's `kpos > pos - window` test, so its partial was already the neutral
-one the trash page gives: retiring changes no output.
+the paged engine also retires pages (`ServeConfig.retire_pages`, on by
+default): after each decode round every block-table entry whose whole page
+has slid out of the window is pointed at the trash page and unpinned,
+freed once no table row or index entry holds it. Such a page's keys all
+fail the decode kernel's `kpos > pos - window` test, so its partial was
+already the neutral one the trash page gives: retiring changes no output.
+
+With `Model.kv_dtype = torch.int8` the paged pools hold int8 codes and one
+float32 scale per (page, kv head) (`attention.QuantPagedKVCache`): a prefill
+commit quantizes per page, a decode write folds its token into a running-max
+page scale, the engine zeroes the scale rows of every page it allocates
+(retired and freed pages included, when they are handed out again), and
+decode runs `Backend.quant_paged_decode_attention`. As in `repro`, prefix
+sharing is forced off there (a tail prefill would attend over dequantized
+prefix K/V where the solo run saw full precision) and `spec_k > 1` is
+refused. On the ring the same setting gives an int8 ring with per-token
+scales.
 
 Not ported yet, and raising `NotImplementedError` that names ROADMAP.md:
-the ring cache (`cache="ring"`, and `"auto"` on a recurrent or enc-dec
-arch), speculative decode (`spec_k > 1`) and int8 page pools.
+speculative decode (`spec_k > 1`).
 """
 from __future__ import annotations
 
@@ -52,6 +76,29 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as T
 
 _SEE = "is not ported to repro_torch yet; see ROADMAP.md queue 1, item 9"
+
+
+def _leaves(tree):
+    """The tensors of a cache tree (dicts, tuples and NamedTuples), in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _splice_slot(dst: dict, src: dict, slot: int) -> dict:
+    """Copy batch slot `slot` of every leaf of cache `src` into `dst`, in
+    place (a ring-mode join): stacked super-block leaves carry the batch on
+    axis 1, tail leaves on axis 0; the shared position is equal on both
+    sides (the join prefill is left-padded to it)."""
+    for group, axis in (("blocks", 1), ("tail", 0)):
+        for d, s in zip(_leaves(dst[group]), _leaves(src[group])):
+            d.select(axis, slot).copy_(s.select(axis, slot))
+    return dst
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -107,9 +154,10 @@ class Request:
 
 class ServeEngine:
     """Continuous-batching greedy decode over `batch_size` slots with a paged
-    KV cache, on `device` (the card unless the caller asks for the CPU; the
-    model's parameters must live there). `backend` (`reference` | `cuda`,
-    default `reference`) selects the attention of prefill and decode."""
+    or a ring KV cache (see the module docstring), on `device` (the card
+    unless the caller asks for the CPU; the model's parameters must live
+    there). `backend` (`reference` | `cuda`, default `reference`) selects the
+    attention of prefill and decode."""
 
     def __init__(self, model, params, batch_size: Optional[int] = None,
                  max_len: Optional[int] = None, backend=None,
@@ -139,29 +187,37 @@ class ServeEngine:
             raise ValueError(f"unknown cache mode {cfg.cache!r}")
         else:
             self.cache_mode = cfg.cache
-        if self.cache_mode == "ring":
-            raise NotImplementedError(f"the ring cache (cache={cfg.cache!r} for "
-                                      f"{model.cfg.name}) {_SEE}")
-        if model.kv_dtype == torch.int8:
-            raise NotImplementedError(f"int8 page pools (kv_dtype int8) {_SEE}")
+        self._quant = self.cache_mode == "paged" and model.kv_dtype == torch.int8
+        if self._quant:
+            if cfg.spec_k > 1:
+                raise ValueError("spec_k > 1 is unsupported with int8 KV pools "
+                                 "(draft rollback cannot undo a grown page scale)")
+            # a tail prefill would attend over dequantized prefix K/V where the
+            # solo run saw full precision: sharing is forced off, as in repro
+            cfg = replace(cfg, share_prefix=False)
+            self.config = cfg
+        # page retirement is exact only where every layer masks beyond the
+        # window (`repro`'s rule; attn_kind is arch-wide)
+        w = model.cfg.sliding_window
+        windowed = w > 0 and all(k == "local" or model.cfg.attn_kind == "sliding"
+                                 for k in model.cfg.block_pattern)
+        self._retire_window = w if (cfg.retire_pages and windowed) else 0
+        self.prefill_widths: set = set()  # distinct prefill widths run
+        self.stats: dict = {}
+        if self.cache_mode == "paged":
+            if cfg.page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {cfg.page_size}")
+            self.table_pages = -(-cfg.max_len // cfg.page_size)
+            self.num_pages = cfg.num_pages or (1 + self.B * self.table_pages)
+            self.page_refs = np.zeros(self.num_pages, np.int32)
+            self._prefix_index: OrderedDict = OrderedDict()
+            self._prefix_evictions = 0  # lifetime count, mirrored into stats
+            self._slot_rows: list = [None] * self.B
+            self._pool = None  # (cache, free list) kept across run() waves
+        if cfg.spec_k > 1 and self.cache_mode != "paged":
+            raise ValueError("spec_k needs the paged cache discipline")
         if cfg.spec_k > 1:
             raise NotImplementedError(f"speculative decode (spec_k > 1) {_SEE}")
-        # page retirement is exact only where every layer masks beyond the
-        # window, as each of the port's layers does on a sliding arch (the
-        # window `transformer._attn_spec` gives every block)
-        w = model.cfg.sliding_window if model.cfg.attn_kind == "sliding" else 0
-        self._retire_window = w if cfg.retire_pages else 0
-        if cfg.page_size < 1:
-            raise ValueError(f"page_size must be >= 1, got {cfg.page_size}")
-        self.prefill_widths: set = set()  # distinct prefill widths run
-        self.table_pages = -(-cfg.max_len // cfg.page_size)
-        self.num_pages = cfg.num_pages or (1 + self.B * self.table_pages)
-        self.page_refs = np.zeros(self.num_pages, np.int32)
-        self._prefix_index: OrderedDict = OrderedDict()
-        self._prefix_evictions = 0  # lifetime count, mirrored into stats
-        self._slot_rows: list = [None] * self.B
-        self.stats: dict = {}
-        self._pool = None  # (cache, free list) kept across run() waves
 
     def run(self, requests: list) -> list:
         """Serve `requests` to completion; returns them in finish order."""
@@ -172,7 +228,9 @@ class ServeEngine:
                 done.append(r)
             else:
                 pending.append(r)
-        return self._run_paged(pending, done)
+        if self.cache_mode == "paged":
+            return self._run_paged(pending, done)
+        return self._run_ring(pending, done)
 
     # ------------------------------------------------------------- plumbing
     def _bucket(self, n: int) -> int:
@@ -198,6 +256,17 @@ class ServeEngine:
     def _sync_refcount(self, cache):
         """Refresh the card's refcount mirror from the host's array."""
         cache["refcount"].copy_(torch.from_numpy(self.page_refs))
+        return cache
+
+    def _reset_page_scales(self, cache, pages: list):
+        """Zero the scale rows of freshly allocated `pages` in every int8 pool
+        (a float pool has no scales): a recycled page's old running-max scale
+        must not enter its new tenant's quantization."""
+        if not self._quant or not pages:
+            return cache
+        ids = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        for pool in self._pools(cache):
+            attn_lib.paged_reset_scales(pool, ids)
         return cache
 
     # --------------------------------------------- sliding-window retirement
@@ -470,6 +539,8 @@ class ServeEngine:
             row[:need] = pages
             self._slot_rows[slot] = row
             row_t = self._rows(row)
+            # int8 pools: zero the fresh pages' scale rows before any write
+            cache = self._reset_page_scales(cache, pages[n_share:])
             width = self._bucket(L)
             j.entry_width = width
             self.stats["prompt_tokens"] += L
@@ -497,8 +568,8 @@ class ServeEngine:
                     self.params, {"tokens": self._rows(toks)}, cache_len=width,
                     backend=self.backend, last_pos=torch.tensor([L - 1]), full_cache=True,
                     prefill_chunk=self.config.prefill_chunk)
-                self._commit(cache, dense, lambda pool, dn: attn_lib.paged_commit(
-                    pool, dn, row_t, L, width))
+                commit = attn_lib.quant_paged_commit if self._quant else attn_lib.paged_commit
+                self._commit(cache, dense, lambda pool, dn: commit(pool, dn, row_t, L, width))
             self._register_prefix(j.prompt, width, row, free)
             cache["pages"][slot] = row_t
             cache["pos"][slot] = L
@@ -516,3 +587,88 @@ class ServeEngine:
             active[slot] = j
             remaining[slot] = j.max_new - 1
             return cache, nxt
+
+    # ------------------------------------------------------------- ring path
+    def _prefill_ring(self, toks: np.ndarray):
+        """A left-padded [B, S] prefill into a fresh ring of `max_len`
+        positions -> (logits at position -1 [B, 1, V], the cache)."""
+        return self.model.prefill(self.params, {"tokens": self._rows(toks)},
+                                  cache_len=self.max_len, backend=self.backend)
+
+    def _try_join(self, pending: list, done: list, cache, nxt, active, remaining, slot: int):
+        """Fill freed `slot` from `pending` mid-stream: the first request whose
+        prompt fits the positions run so far and whose budget fits max_len is
+        prefilled left-padded to the current position (the whole batch, the
+        other rows pad), its slot of every cache leaf spliced in, and its
+        first token (the join prefill's greedy pick) recorded. Returns
+        (cache, nxt), unchanged when nothing fits."""
+        while True:
+            cur = int(cache["pos"])
+            j = next((r for r in pending
+                      if len(r.prompt) <= cur and cur + r.max_new <= self.max_len), None)
+            if j is None:
+                return cache, nxt
+            pending.remove(j)
+            toks = np.zeros((self.B, cur), np.int32)
+            toks[slot, cur - len(j.prompt):] = j.prompt
+            j.entry_width = cur
+            self.prefill_widths.add(cur)
+            j_logits, j_cache = self._prefill_ring(toks)
+            cache = _splice_slot(cache, j_cache, slot)
+            first = greedy(j_logits)
+            j.out.append(int(first[slot, 0]))
+            if self.config.trace_logits:
+                j.logits.append(j_logits[slot, -1].float().cpu().numpy().copy())
+            if j.max_new == 1:  # drained on its own prefill; the slot frees again
+                j.done = True
+                done.append(j)
+                continue
+            nxt[slot] = first[slot]
+            active[slot] = j
+            remaining[slot] = j.max_new - 1
+            return cache, nxt
+
+    def _run_ring(self, pending: list, done: list) -> list:
+        """Waves of up to batch_size requests, each prefilled together
+        left-padded to its longest prompt; freed slots take joins until the
+        wave drains."""
+        while pending:
+            wave, pending = pending[:self.B], pending[self.B:]
+            S = max(len(r.prompt) for r in wave)
+            toks = np.zeros((self.B, S), np.int32)
+            for i, r in enumerate(wave):
+                toks[i, S - len(r.prompt):] = r.prompt  # left-pad
+                r.entry_width = S
+            self.prefill_widths.add(S)
+            logits, cache = self._prefill_ring(toks)
+            nxt = greedy(logits)
+            if self.config.trace_logits:
+                log_np = logits.float().cpu().numpy()
+                for i, r in enumerate(wave):
+                    r.logits.append(log_np[i, -1].copy())
+            active: list = list(wave) + [None] * (self.B - len(wave))
+            remaining = [r.max_new if r else 0 for r in active]
+            while True:
+                nxt_np = nxt.cpu().numpy()
+                for i, r in enumerate(active):
+                    if r is None or remaining[i] == 0:
+                        continue
+                    r.out.append(int(nxt_np[i, 0]))
+                    remaining[i] -= 1
+                    if remaining[i] == 0:
+                        r.done = True
+                        done.append(r)
+                        active[i] = None
+                        cache, nxt = self._try_join(pending, done, cache, nxt, active,
+                                                    remaining, i)
+                if not any(remaining):
+                    break
+                logits, cache = self.model.decode_step(self.params, cache, {"tokens": nxt},
+                                                       backend=self.backend)
+                nxt = greedy(logits)
+                if self.config.trace_logits:
+                    log_np = logits.float().cpu().numpy()
+                    for i, r in enumerate(active):
+                        if r is not None and remaining[i] > 0:
+                            r.logits.append(log_np[i, 0].copy())
+        return done

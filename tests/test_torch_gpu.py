@@ -563,3 +563,120 @@ def _windowed_engine(dev):
         assert launches["local_attention"] == cfg.n_layers * n_local
         assert launches["flash_attention"] == 0
         assert launches["paged_attention"] == cfg.n_layers * stats["decode_rounds"]
+
+
+# B, Hkv, G, D, W, decode position, window, softcap, dtype
+DECODE_CASES = [
+    (2, 1, 16, 256, 2048, 3030, 2048, 0.0, torch.float32),  # recurrentgemma-9b, ring wrapped
+    (4, 16, 1, 128, 256, 100, 0, 0.0, torch.float32),  # olmo-1b on a ring, not full yet
+    (3, 2, 4, 64, 80, 201, 50, 30.0, torch.float32),  # a ragged last chunk, softcap
+    (2, 2, 8, 128, 96, 140, 0, 0.0, torch.bfloat16),
+]
+
+
+def test_decode_attention_kernel_matches_plain():
+    """The ring decode kernel against its plain version at each of
+    DECODE_CASES (valid from ring_valid at the case's position): within the
+    tolerance (bf16 outputs 2^-7), bit for bit on a repeat, one launch a
+    call, the ring read through a strided view of a wider tensor, zeros when
+    no slot is valid; bad input raises. Then the banded kernel at
+    RecurrentGemma-9B's head shape (16 query heads over 1 kv head of 256,
+    the DMAX 256 instance) against its plain version and bit for bit
+    flash."""
+    from repro_torch.kernels import decode_attention, ops
+    from repro_torch.models.attention import AttnSpec, ring_valid
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(2)
+    for B, Hkv, G, D, W, pos, window, softcap, dtype in DECODE_CASES:
+        q = torch.randn(B, 1, Hkv * G, D, generator=g, device=dev).to(dtype)
+        wide = torch.randn(B, W, Hkv + 1, D, generator=g, device=dev).to(dtype)
+        k = wide[:, :, 1:]  # a strided view: the kernel reads through strides
+        v = torch.randn(B, W, Hkv, D, generator=g, device=dev).to(dtype)
+        spec = AttnSpec(True, window, softcap)
+        valid = ring_valid(torch.tensor(pos, device=dev), W, spec)
+        before = LAUNCHES["decode_attention"]
+        out = ops.decode_attention(q, k, v, valid, spec)
+        torch.cuda.synchronize()
+        ref = ops.decode_attention_ref(q, k, v, valid, spec)
+        assert out.shape == ref.shape == (B, 1, Hkv * G, D) and out.dtype == dtype
+        assert float((out.float() - ref.float()).abs().max()) <= _tol(dtype, ref)
+        assert torch.equal(ops.decode_attention(q, k, v, valid, spec), out)
+        blind = ops.decode_attention(q, k, v, torch.zeros_like(valid), spec)
+        assert not blind.any()
+        assert LAUNCHES["decode_attention"] == before + 3
+    qg = torch.randn(1, 1, 2, 16, device=dev)
+    kv = torch.randn(1, 8, 1, 16, device=dev)
+    with pytest.raises(ValueError, match="bool"):
+        decode_attention.decode_attention(qg, kv, kv, torch.ones(8, device=dev))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        decode_attention.decode_attention(qg, kv.bfloat16(), kv, torch.ones(8, dtype=torch.bool,
+                                                                             device=dev))
+    # the banded kernel at D = 256 (its prefills on RecurrentGemma-9B)
+    S, window = 300, 128
+    q = torch.randn(2, S, 16, 256, generator=g, device=dev)
+    k = torch.randn(2, S, 1, 256, generator=g, device=dev)
+    v = torch.randn(2, S, 1, 256, generator=g, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    spec = AttnSpec(True, window, 0.0)
+    local = ops.local_attention(q, k, v, pos, pos, spec)
+    torch.cuda.synchronize()
+    ref = ops.local_attention_ref(q, k, v, pos, pos, spec)
+    assert float((local - ref).abs().max()) <= _tol(torch.float32, ref)
+    assert torch.equal(local, ops.flash_attention(q, k, v, pos, pos, spec))
+
+
+# B, Hkv, G, D, P, table pages, pool pages, window, softcap, q dtype
+QUANT_CASES = [
+    (4, 16, 1, 128, 8, 32, 129, 0, 0.0, torch.float32),  # olmo-1b decode, batch 4
+    (2, 2, 12, 128, 8, 20, 41, 64, 0.0, torch.float32),  # starcoder2-like GQA with a window
+    (3, 1, 16, 256, 8, 6, 20, 0, 20.0, torch.float32),  # D = 256, softcap
+    (2, 2, 2, 32, 16, 4, 9, 0, 0.0, torch.bfloat16),
+]
+
+
+def test_quant_paged_kernel_matches_plain():
+    """The int8 paged partials kernel against its plain version at each of
+    QUANT_CASES (int8 pools with positive per-(page, head) scales, a parked
+    slot, a page past its slot's position): m, l, acc and the merged output
+    within the tolerance, trash and wholly invalid pages exactly (-1e30, 0,
+    0), bit for bit on a repeat, one launch a call; float pools raise."""
+    from repro_torch.kernels import ops, paged_attention
+    from repro_torch.models.attention import AttnSpec
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    for B, Hkv, G, D, P, n_table, n_phys, window, softcap, dtype in QUANT_CASES:
+        q, k_pages, v_pages, table, pos = _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys,
+                                                        torch.float32, seed=4)
+        q = q.to(dtype)
+        kq = torch.randint(-127, 128, k_pages.shape, generator=g, device=dev).to(torch.int8)
+        vq = torch.randint(-127, 128, v_pages.shape, generator=g, device=dev).to(torch.int8)
+        ks = 0.01 + 0.04 * torch.rand(n_phys, Hkv, generator=g, device=dev)
+        vs = 0.01 + 0.04 * torch.rand(n_phys, Hkv, generator=g, device=dev)
+        qg = q.reshape(B, Hkv, G, D)
+        kw = dict(window=window, softcap=softcap)
+        a = (qg, kq, vq, ks, vs, table, pos)
+        before = LAUNCHES["paged_attention_quant"]
+        out = paged_attention.paged_attention_partials_quant(*a, **kw)
+        torch.cuda.synchronize()
+        ref = paged_attention.paged_attention_partials_quant_reference(*a, **kw)
+        m, l, acc = out
+        kpos_first = torch.arange(n_table, device=dev) * P
+        dead = ((table == 0) | (kpos_first[None] > pos[:, None]))[:, None, :, None]
+        dead = dead.expand_as(m)
+        assert torch.equal(m[dead], torch.full_like(m[dead], -1e30))
+        assert not l[dead].any() and not acc[dead].any()
+        for x, y in zip((m[~dead], l, acc), (ref[0][~dead], ref[1], ref[2])):
+            assert x.dtype == torch.float32
+            assert float((x - y).abs().max()) <= TOL_REL * float(y.abs().max()) + TOL_ABS
+        again = paged_attention.paged_attention_partials_quant(*a, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(out, again))
+        assert LAUNCHES["paged_attention_quant"] == before + 2
+        spec = AttnSpec(True, window, softcap)
+        o = ops.quant_paged_decode_attention(q, kq, vq, ks, vs, table, pos, spec)
+        o_ref = ops.quant_paged_decode_attention_ref(q, kq, vq, ks, vs, table, pos, spec)
+        assert float((o.float() - o_ref.float()).abs().max()) <= _tol(dtype, o_ref)
+    with pytest.raises(ValueError, match="int8"):
+        paged_attention.paged_attention_partials_quant(qg, k_pages.to(dtype), vq, ks, vs, table,
+                                                       pos)

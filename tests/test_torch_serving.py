@@ -29,7 +29,7 @@ from repro.core.backend import get_backend as j_get_backend
 from repro.models import Model as JModel
 from repro_torch import convert
 from repro_torch.configs import get_config, reduced
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RGLRUConfig
 from repro_torch.launch import serve
 from repro_torch.models import Model
 from repro_torch.serving import engine
@@ -215,20 +215,27 @@ def _tiny_model(**overrides):
 
 
 NOT_PORTED = {
-    "ring": lambda m, p: ServeEngine(m, p, device="cpu", config=ServeConfig(cache="ring")),
-    "auto_on_recurrent": lambda m, p: ServeEngine(
-        Model(dataclasses.replace(m.cfg, block_pattern=("rglru",)), device="cpu"), p,
-        device="cpu"),
     "spec_k": lambda m, p: ServeEngine(m, p, device="cpu", config=ServeConfig(spec_k=2)),
-    "int8": lambda m, p: (setattr(m, "kv_dtype", torch.int8), ServeEngine(m, p, device="cpu")),
-    "ring_prefill_of_a_windowed_arch": lambda m, p: Model(
-        dataclasses.replace(m.cfg, attn_kind="sliding", sliding_window=16),
-        device="cpu").prefill(p, {"tokens": torch.zeros(1, 8, dtype=torch.int32)}),
-    "arch": lambda m, p: get_config("recurrentgemma-9b"),
+    "arch": lambda m, p: get_config("mamba2-370m"),
     "model_init_of_a_moe": lambda m, p: Model(
         ModelConfig("moe", "moe", 2, 64, 4, 4, 128, 256, block_pattern=("attn_moe",)),
         device="cpu").init(0),
 }
+
+
+def _recurrent_engine(m, p, **config):
+    """An engine on m's config with an RG-LRU block before each attention
+    block (and its own parameters)."""
+    rec = Model(dataclasses.replace(m.cfg, block_pattern=("rglru", "attn"), n_layers=2,
+                                    rglru=RGLRUConfig(lru_width=64)), device="cpu")
+    return ServeEngine(rec, rec.init(0), device="cpu", config=ServeConfig(**config))
+
+
+def _int8(m, p, **config):
+    m.kv_dtype = torch.int8
+    return ServeEngine(m, p, device="cpu", config=ServeConfig(**config))
+
+
 # paths the port once raised for that now run: each serves a request
 PORTED = {
     "prefill_chunk": lambda m, p: ServeEngine(m, p, device="cpu",
@@ -236,13 +243,22 @@ PORTED = {
     "sliding_window": lambda m, p: ServeEngine(
         Model(dataclasses.replace(m.cfg, attn_kind="sliding", sliding_window=16),
               device="cpu"), p, device="cpu"),
+    "ring": lambda m, p: ServeEngine(m, p, device="cpu", config=ServeConfig(cache="ring")),
+    "auto_on_recurrent": _recurrent_engine,
+    "int8": _int8,
+    "int8_ring": lambda m, p: _int8(m, p, cache="ring"),
+    "ring_prefill_of_a_windowed_arch": lambda m, p: ServeEngine(
+        Model(dataclasses.replace(m.cfg, attn_kind="sliding", sliding_window=16),
+              device="cpu"), p, device="cpu", config=ServeConfig(cache="ring")),
 }
 
 
 def _check_not_yet_ported_options_raise():
     """Every path of NOT_PORTED, which the port does not have yet, raises
     NotImplementedError naming ROADMAP.md; none falls back to something
-    else. Every path of PORTED serves a 40-token prompt."""
+    else. Every path of PORTED serves a 40-token prompt (past the window of
+    the windowed ones): 3 tokens, from 2 decode rounds where the engine
+    counts them (paged)."""
     for what in sorted(NOT_PORTED):
         m, p = _tiny_model()
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -252,7 +268,10 @@ def _check_not_yet_ported_options_raise():
         m, p = _tiny_model()
         eng = PORTED[what](m, p)
         done = eng.run([Request(uid=0, prompt=prompt, max_new=3)])
-        assert len(done[0].out) == 3 and eng.stats["decode_rounds"] == 2
+        assert len(done[0].out) == 3
+        assert eng.cache_mode == ("ring" if "ring" in what or "recurrent" in what else "paged")
+        if eng.cache_mode == "paged":
+            assert eng.stats["decode_rounds"] == 2
 
 
 def _check_engine_needs_the_card_unless_asked_for_the_cpu():
