@@ -7,7 +7,9 @@ ring serving path and the int8 page pools.
 
 1. Builds the twelve CUDA kernels from `src/repro_torch/kernels/csrc` (one
    nvcc per source, all ten sources at once) and prints nvcc's
-   `-Xptxas -v` report.
+   `-Xptxas -v` report; counts the HMMA TF32 instructions in the SASS of
+   each kernel that runs the flash tile program (`cuobjdump -sass`) and
+   fails where one has none.
 2. For each CHEF kernel, at the main path's shapes (the mimic widths of the
    paper's Table 3; replay_correction at r = 1, 3 and 64 changed slots, a
    third of them padded): makes inputs on the card from a fixed seed,
@@ -113,6 +115,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# the flash tile program's float32 products: split TF32 on the tensor cores,
+# three TF32 products (495 TFLOP/s dense) a float32 product
+TF32X3_OPS_PER_S = 495e12 / 3
 TOL_REL, TOL_ABS = 1e-4, 1e-6  # kernel vs plain: max|diff| <= TOL_REL * max|plain| + TOL_ABS
 TIE_REL = 1e-3  # a row only one run selected must lie this close to a run's b-th priority
 F1_TOL = 0.005  # final test F1, cuda run vs reference run
@@ -138,6 +143,9 @@ REPLACES = {
     "paged_attention_quant": "src/repro/kernels/paged_attention.py:247",
 }
 CHEF_KERNELS = ("lr_grad", "lr_hvp", "minibatch_grad", "infl_scores", "replay_correction")
+# the libraries and kernels that run the flash tile program (csrc/attn_common.cuh)
+TILE_LIBS = ("flash_attention", "local_attention", "chunked_prefill")
+TILE_KERNELS = ("flash_kernel", "banded_kernel", "chunk_kernel")
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 BF16_TOL_REL = 2.0**-7  # bf16 outputs: each side rounds once, so they may sit one bf16 step apart
 # the serving path: OLMo-1B at full width, random weights from SEED
@@ -251,17 +259,25 @@ def _template_args(targs: str) -> list[str]:
     return out
 
 
+def _kernel_name(mangled: str) -> str | None:
+    """`flash_kernel<128,f32>` from `_ZN4chef12flash_kernelILi128EfEEv...`."""
+    m = re.search(r"_ZN4chef(\d+)(\w+)", mangled)
+    if not m:
+        return None
+    n = int(m.group(1))
+    base, rest = m.group(2)[:n], m.group(2)[n:]
+    args = _template_args(rest.split("EEv")[0]) if rest.startswith("I") else []
+    return base + (f"<{','.join(args)}>" if args else "")
+
+
 def ptxas_report(log: str) -> list[str]:
     """One line per compiled function from nvcc's -Xptxas -v output:
     registers, shared memory and spills."""
     lines, name = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_ZN4chef(\d+)(\w+)'", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            n = int(m.group(1))
-            base, rest = m.group(2)[:n], m.group(2)[n:]
-            args = _template_args(rest.split("EEv")[0]) if rest.startswith("I") else []
-            name = base + (f"<{','.join(args)}>" if args else "")
+            name = _kernel_name(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
@@ -285,6 +301,36 @@ def build_phase() -> None:
         print(f"--- nvcc -Xptxas -v, lib{lib}.so:", *report, sep="\n  ", flush=True)
     emit({"phase": "build", "kernels": sorted(logs), "dir": str(build.build_dir()),
           "seconds": seconds})
+
+
+def sass_phase() -> None:
+    """Count the TF32 tensor-core instructions (HMMA ... TF32) in the SASS
+    of each kernel that runs the flash tile program, from `cuobjdump -sass`
+    on the built libraries; fails where a tile kernel has none."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    counts, other = {}, set()
+    for lib in TILE_LIBS:
+        sass = subprocess.run([str(tool), "-sass", str(build.build_dir() / f"lib{lib}.so")],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        name = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = _kernel_name(m.group(1))
+                if name and any(name.startswith(k) for k in TILE_KERNELS):
+                    counts[name] = 0
+                continue
+            if name in counts and "HMMA" in line:
+                if re.search(r"HMMA\.\S*TF32", line):
+                    counts[name] += 1
+                else:
+                    other.add(re.search(r"HMMA\S*", line).group())
+    emit({"phase": "sass", "what": "HMMA TF32 instructions in each tile kernel's SASS",
+          "hmma_tf32": counts, "other_hmma": sorted(other)})
+    if not counts or not all(counts.values()):
+        fail(f"a flash tile kernel has no HMMA TF32 instruction: {counts}")
 
 
 def kernel_phase(torch, card_line: str) -> dict:
@@ -733,7 +779,7 @@ def attention_kernel_phase(torch, card_line: str) -> dict:
             torch, name, lambda a=(q, k, v, qpos, kpos, spec): ops.flash_attention(*a),
             lambda a=(q, k, v, qpos, kpos, spec): ops.flash_attention_ref(*a), library,
             [B, Sq, Skv, Hq, Hkv, D, off, window, softcap, str(dtype)], nbytes, ops_n,
-            BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S, card_line,
+            BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32X3_OPS_PER_S, card_line,
             bf16=dtype == torch.bfloat16)
     paged_cases = {
         # name: B, Hkv, G, D, P, table pages, pool pages, window
@@ -830,7 +876,7 @@ def windowed_kernel_phase(torch, card_line: str) -> dict:
             torch, name, lambda a=a: ops.local_attention(*a, spec),
             lambda a=a: ops.local_attention_ref(*a, spec), sdpa(a, vis),
             [1, a[0].shape[1], a[1].shape[1], Hq, Hkv, D, int(a[3][0]), W, "float32"],
-            attn_bytes(a, a[0].numel()), 4.0 * D * Hq * float(vis.sum()), FP32_OPS_PER_S,
+            attn_bytes(a, a[0].numel()), 4.0 * D * Hq * float(vis.sum()), TF32X3_OPS_PER_S,
             card_line, library_computes="SDPA, float32, the boolean band mask")
     for name, a in (("chunked_prefill", prefill), ("chunked_prefill/tail", tail)):
         vis = band(a[3], a[4], W)
@@ -839,7 +885,7 @@ def windowed_kernel_phase(torch, card_line: str) -> dict:
             torch, name, lambda a=a: ops.chunked_prefill_partials(*a, spec, SC_CHUNK),
             lambda a=a: ops.chunked_prefill_partials_ref(*a, spec, SC_CHUNK), sdpa(a, vis),
             [1, Sq, a[1].shape[1], Hq, Hkv, D, int(a[3][0]), W, SC_CHUNK, "float32"],
-            attn_bytes(a, Hq * Sq * (D + 2)), 4.0 * D * Hq * float(vis.sum()), FP32_OPS_PER_S,
+            attn_bytes(a, Hq * Sq * (D + 2)), 4.0 * D * Hq * float(vis.sum()), TF32X3_OPS_PER_S,
             card_line, library_computes="SDPA of the whole op's output (partials and merge), "
                                         "float32, the boolean band mask: no one call gives the "
                                         "partials")
@@ -856,7 +902,7 @@ def windowed_kernel_phase(torch, card_line: str) -> dict:
         [1, sparse[0].shape[1], sparse[1].shape[1], Hq, Hkv, D, 0, W, [nq, nk],
          int(mask.sum()), "float32"],
         attn_bytes(sparse, sparse[0].numel()) + 4.0 * nq * nk,
-        4.0 * D * Hq * float(vis.sum()), FP32_OPS_PER_S, card_line,
+        4.0 * D * Hq * float(vis.sum()), TF32X3_OPS_PER_S, card_line,
         library_computes="SDPA, float32, the block mask expanded to elements and the causal "
                          "mask (a row with no enabled key gives NaN there, 0 in the kernel)")
 
@@ -1046,7 +1092,7 @@ def ring_int8_kernel_phase(torch, card_line: str) -> dict:
         lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=vis, enable_gqa=True),
         [RG_BATCH, S, S, Hq, Hkv, D, 0, W, "float32"],
         4.0 * (2 * q.numel() + k.numel() + v.numel() + 2 * S),
-        4.0 * D * Hq * RG_BATCH * float(vis.sum()), FP32_OPS_PER_S, card_line,
+        4.0 * D * Hq * RG_BATCH * float(vis.sum()), TF32X3_OPS_PER_S, card_line,
         library_computes="SDPA, float32, the boolean band mask")
     same = torch.equal(ops.local_attention(*a, spec), ops.flash_attention(*a, spec))
     emit({"phase": "identities", "bitwise_equal": {
@@ -1707,6 +1753,7 @@ def main() -> None:
     emit({"phase": "start", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card_line})
     build_phase()
+    sass_phase()
     kern = kernel_phase(torch, card_line)
     kern.update(attention_kernel_phase(torch, card_line))
     kern.update(windowed_kernel_phase(torch, card_line))

@@ -19,7 +19,8 @@ carry, walks the chunk's KV tiles with the flash kernel's tile program and
 writes the carry back in place. The host loop over chunks lives here, as in
 the JAX package. The chunk rounds up to a multiple of the kernel's 64-key
 tile, so the chunks end on the flash kernel's tile boundaries. Bound on the
-H100: float32 operations, as flash (4 D flops a visible pair).
+H100: float32 operations, as flash (4 D flops a visible pair, split TF32 on
+the tensor cores), plus each chunk's read and write of the carry.
 """
 from __future__ import annotations
 

@@ -17,25 +17,27 @@
 // of tile steps: the same bits for any chunk.
 //
 // Peak extra memory is the carry, Sq * Hq * (D + 2) floats a batch row.
-// Bound on the H100: float32 operations, as the flash kernel (4 D flops a
-// visible pair), plus each chunk's read and write of the carry.
+// Bound on the H100: float32 operations as the flash kernel's (4 D flops a
+// visible pair, split TF32 on the tensor cores at 165 TFLOP/s a float32
+// product), plus each chunk's read and write of the carry; the carry is
+// read into and written from the registers that hold (m, l, acc), exactly.
 #include "attn_common.cuh"
 
 namespace chef {
 
 template <int DMAX, typename T>
-__global__ void __launch_bounds__(kFlashThreads) chunk_kernel(FlashArgs a) {
-  extern __shared__ float smem[];
-  FlashCta<DMAX, T> cta(a, smem);
+__global__ void __launch_bounds__(BandTile<DMAX, T>::L::kThreads) chunk_kernel(FlashArgs a) {
+  extern __shared__ float4 smem[];  // 16-byte aligned
+  BandTile<DMAX, T> cta(a, reinterpret_cast<unsigned char*>(smem));
   cta.begin(a, true);
-  for (int k0 = 0; k0 < a.Skv; k0 += kBK) cta.template tile<false>(a, k0);
+  cta.template run<false>(a, 0, (a.Skv + kBK - 1) / kBK);
   cta.write_carry(a);
 }
 
 template <int DMAX, typename T>
 struct ChunkLaunch {
   static cudaError_t run(const FlashArgs& a, int B, cudaStream_t stream) {
-    return launch_flash_grid<DMAX>(chunk_kernel<DMAX, T>, a, B, stream);
+    return launch_flash_grid<BandTile<DMAX, T>>(chunk_kernel<DMAX, T>, a, B, stream);
   }
 };
 

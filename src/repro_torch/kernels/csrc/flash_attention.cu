@@ -9,32 +9,37 @@
 // The TPU kernel walks the KV blocks of one (b, h, q block) as the
 // sequential innermost grid axis and carries the running max m, denominator
 // l and accumulator in VMEM. H100 blocks run in parallel and in no order, so
-// here one CTA owns one (q tile, q head, batch) cell and loops over every KV
-// tile itself, testing each with the band predicate: the flash tile program
-// of attn_common.cuh (64 x 64 tiles, (m, l, acc) in shared memory and
-// registers, masks from the positions only, dead tiles skipped).
+// here one CTA owns one (q tile, q head, batch) cell and loops over its live
+// KV tiles itself: the flash tile program of attn_common.cuh (32-row q tiles
+// of four warps, two a 16 rows splitting each 64-key step, split-TF32
+// tensor-core products, (m, l, acc) in registers, K/V staged with cp.async
+// ahead of the tile being folded, masks from the positions only, dead tiles
+// skipped).
 //
-// Bound on the H100: for a prefill at S = 256 with D = 128 the scores and the
-// value product are 4 * S^2 * D flops a head in float32 (no tensor cores in
-// this first version) against 4 * S * D * 4 bytes of q, k, v and out, so it
-// is bound by operations at the 67 TFLOP/s float32 rate.
+// Bound on the H100: a causal prefill at S = 256 with D = 128 does 4 D flops
+// for each of its S^2 / 2 visible pairs a head, against 4 * S * D * 4 bytes
+// of q, k, v and out a head. At
+// the split-TF32 rate (165 TFLOP/s a float32 product) the flops take less
+// time than the 8.4 MB do at 3.35 TB/s, so it is bound by bytes; in practice
+// by the latency of the last q tile's four KV steps, each warp's chain of
+// tensor-core products, which the 32-row tiles and the warp pairs halve.
 #include "attn_common.cuh"
 
 namespace chef {
 
 template <int DMAX, typename T>
-__global__ void __launch_bounds__(kFlashThreads) flash_kernel(FlashArgs a) {
-  extern __shared__ float smem[];
-  FlashCta<DMAX, T> cta(a, smem);
+__global__ void __launch_bounds__(FlashTile<DMAX, T>::L::kThreads) flash_kernel(FlashArgs a) {
+  extern __shared__ float4 smem[];  // 16-byte aligned
+  FlashTile<DMAX, T> cta(a, reinterpret_cast<unsigned char*>(smem));
   cta.begin(a, false);
-  for (int k0 = 0; k0 < a.Skv; k0 += kBK) cta.template tile<false>(a, k0);
+  cta.template run<false>(a, 0, (a.Skv + kBK - 1) / kBK);
   cta.write_out(a);
 }
 
 template <int DMAX, typename T>
 struct FlashLaunch {
   static cudaError_t run(const FlashArgs& a, int B, cudaStream_t stream) {
-    return launch_flash_grid<DMAX>(flash_kernel<DMAX, T>, a, B, stream);
+    return launch_flash_grid<FlashTile<DMAX, T>>(flash_kernel<DMAX, T>, a, B, stream);
   }
 };
 

@@ -28,7 +28,12 @@
 // Bound on the H100: float32 operations, 4 D flops a visible (query, key)
 // pair (a StarCoder2 prefill at 8192 tokens with window 4096: 25.2 M visible
 // pairs a head), against one read of q, of the band's K/V and one write of
-// out.
+// out. The tile program runs them on the tensor cores in split TF32 (165
+// TFLOP/s a float32 product, not the CUDA cores' 67), with the band's next
+// K/V tile in flight while a tile is folded, in 64-row CTAs (four warps, or
+// four pairs of warps at D 256) so that each K/V tile of the band is staged
+// once for 64 rows; the diagonal tiles of the band compute their masked
+// halves too.
 #include "attn_common.cuh"
 
 namespace chef {
@@ -43,7 +48,7 @@ __device__ __forceinline__ void band_range(const FlashArgs& a, int qmin, int qma
   }
   __syncthreads();
   const int ntiles = (a.Skv + kBK - 1) / kBK;
-  for (int t = warp; t < ntiles; t += kFlashThreads / 32) {
+  for (int t = warp; t < ntiles; t += blockDim.x / 32) {
     int kmin = INT_MAX, kmax = INT_MIN;
     for (int c = lane; c < kBK; c += 32) {
       const int j = t * kBK + c;
@@ -67,28 +72,27 @@ __device__ __forceinline__ void band_range(const FlashArgs& a, int qmin, int qma
 }
 
 template <int DMAX, typename T, bool kMask>
-__global__ void __launch_bounds__(kFlashThreads) banded_kernel(FlashArgs a) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(BandTile<DMAX, T>::L::kThreads) banded_kernel(FlashArgs a) {
+  extern __shared__ float4 smem[];  // 16-byte aligned
   __shared__ int range[2];
-  FlashCta<DMAX, T> cta(a, smem);
+  BandTile<DMAX, T> cta(a, reinterpret_cast<unsigned char*>(smem));
   cta.begin(a, false);
   band_range(a, cta.qmin, cta.qmax, range);
-  const int first = range[0], last = range[1];
-  for (int t = first; t <= last; ++t) cta.template tile<kMask>(a, t * kBK);
+  cta.template run<kMask>(a, range[0], range[1] + 1);
   cta.write_out(a);
 }
 
 template <int DMAX, typename T>
 struct LocalLaunch {
   static cudaError_t run(const FlashArgs& a, int B, cudaStream_t stream) {
-    return launch_flash_grid<DMAX>(banded_kernel<DMAX, T, false>, a, B, stream);
+    return launch_flash_grid<BandTile<DMAX, T>>(banded_kernel<DMAX, T, false>, a, B, stream);
   }
 };
 
 template <int DMAX, typename T>
 struct SparseLaunch {
   static cudaError_t run(const FlashArgs& a, int B, cudaStream_t stream) {
-    return launch_flash_grid<DMAX>(banded_kernel<DMAX, T, true>, a, B, stream);
+    return launch_flash_grid<BandTile<DMAX, T>>(banded_kernel<DMAX, T, true>, a, B, stream);
   }
 };
 

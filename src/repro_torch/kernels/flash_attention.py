@@ -4,12 +4,17 @@ and logit softcap), in the kernel layout q [B, Hq, Sq, D], k / v
 
 Replaces the TPU kernel
 `repro/kernels/flash_attention.py::flash_attention_pallas`. The CUDA kernel
-(`csrc/flash_attention.cu`) gives each (q tile, q head, batch) cell its own
-CTA, which loops over the KV tiles with the online-softmax (m, l, acc) in
-shared memory and registers; it reads and writes the model layout through
-strides, takes any Sq and Skv, masks from the position tensors only, and
-skips KV tiles in which nothing can be visible. Bound on the H100 at the
-serving shapes: float32 operations (4 D flops a visible (query, key) pair).
+(`csrc/flash_attention.cu`, the tile program of `csrc/attn_common.cuh`) gives
+each (64-row q tile, q head, batch) cell a CTA of four warps, which loops
+over the live 64-key tiles with the online-softmax (m, l, acc) in registers:
+Q.K^T and P.V on the tensor cores in split TF32 (each float32 operand split
+into two TF32 parts, three products summed in float32; never single-pass
+TF32, and the global TF32 flags stay off), K/V staged with cp.async a tile
+ahead. It reads and writes the model layout through strides, takes any Sq
+and Skv, masks from the position tensors only, and skips KV tiles in which
+nothing can be visible. Bound on the H100 at the serving shapes: 4 D flops
+a visible (query, key) pair at 165 TFLOP/s (three TF32 products at 495) or
+the bytes of q, k, v and out, whichever is larger.
 
 The plain version, `flash_attention_reference`, is the JAX package's blocked
 program: `_kv_block_step`'s arithmetic over the block decomposition the

@@ -22,7 +22,9 @@ kernels (`csrc/local_attention.cu`) run the flash kernel's tile program
 and the block-sparse kernel masks elements by the caller's mask at the
 caller's block granularity (`block_q`, `block_k`), which need not be the
 kernel's 64 x 64 tiles. Bound on the H100: float32 operations, 4 D flops a
-visible (query, key) pair.
+visible (query, key) pair, which the tile program runs on the tensor cores
+in split TF32 (165 TFLOP/s a float32 product), the band's next K/V tile in
+flight while a tile is folded.
 
 The plain versions mirror the JAX package's `_banded_reference`: the blocked
 `_kv_block_step` program over the caller's blocks, dead blocks skipped. The

@@ -238,6 +238,21 @@ FLASH_CASES = [
     (2, 77, 77, 4, 2, 64, 0, 16, 30.0, torch.float32),  # GQA + window + softcap, ragged
     (1, 100, 130, 8, 2, 16, 30, 0, 0.0, torch.bfloat16),
     (1, 5, 3, 2, 1, 256, 0, 0, 0.0, torch.float32),
+    # the tensor-core tile program's fragment layouts: Sq, Skv not multiples
+    # of 16 or 8; D 16, 32, 64, 128, 256 in both types; a window smaller than
+    # a tile with rows that see no key (positions below every key); softcap
+    # with GQA 12; D not a multiple of 16 bytes (element-wise staging)
+    (1, 35, 55, 4, 2, 16, 0, 0, 0.0, torch.float32),
+    (1, 70, 45, 4, 4, 32, 20, 0, 0.0, torch.float32),
+    (1, 70, 45, 4, 4, 32, 20, 0, 0.0, torch.bfloat16),
+    (1, 130, 130, 4, 2, 64, -20, 5, 0.0, torch.float32),
+    (1, 130, 130, 4, 2, 64, -20, 5, 0.0, torch.bfloat16),
+    (1, 300, 300, 24, 2, 128, 0, 0, 20.0, torch.float32),
+    (1, 256, 256, 16, 16, 128, 0, 0, 0.0, torch.bfloat16),
+    (2, 90, 200, 4, 1, 256, 110, 0, 0.0, torch.bfloat16),
+    (1, 200, 200, 4, 2, 256, 0, 100, 30.0, torch.float32),
+    (1, 50, 63, 2, 1, 18, 0, 0, 0.0, torch.float32),
+    (1, 50, 63, 2, 1, 20, 0, 0, 0.0, torch.bfloat16),
 ]
 
 
@@ -419,6 +434,15 @@ WINDOWED_CASES = [
     (2, 77, 200, 4, 2, 64, 123, 40, 30.0, torch.float32, 64),  # a tail: GQA, window, softcap
     (1, 200, 200, 8, 2, 16, 0, 0, 0.0, torch.bfloat16, 30),  # mask blocks of 100, bf16
     (1, 130, 130, 4, 4, 32, 0, 50, 0.0, torch.bfloat16, 1000),  # one chunk
+    # the tensor-core tile program: GQA 12 with a ragged last chunk (333 keys
+    # in chunks of 128); D 256 in both types with a window smaller than a
+    # tile or a softcap; rows that see no key; element-wise staging (D 18)
+    (1, 200, 333, 24, 2, 128, 150, 40, 0.0, torch.float32, 100),
+    (1, 150, 150, 4, 1, 256, 0, 7, 0.0, torch.float32, 100),
+    (1, 150, 150, 4, 1, 256, 0, 0, 25.0, torch.bfloat16, 64),
+    (1, 99, 99, 4, 2, 32, -10, 30, 0.0, torch.float32, 64),
+    (1, 64, 64, 2, 2, 64, 0, 3, 10.0, torch.bfloat16, 50),
+    (1, 90, 90, 2, 1, 18, 0, 20, 0.0, torch.float32, 64),
 ]
 
 
