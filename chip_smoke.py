@@ -15,7 +15,13 @@ ring serving path and the int8 page pools.
    third of them padded): makes inputs on the card from a fixed seed,
    launches the kernel, holds it against its plain PyTorch version
    (max|kernel - plain| <= 1e-4 * max|plain| + 1e-6), checks that it repeats
-   bit for bit, and times both with CUDA events.
+   bit for bit, and times both with CUDA events; for the two gathered
+   kernels also the host's cost of a call (200 calls back to back, no
+   synchronise inside), their launch plan (regime and grid) and, as a
+   yardstick, the time of one torch.sum over the same bytes laid out
+   contiguously; and replay_correction at r = 1 to 10 slots in each regime
+   the launch takes there (few_rows up to its slot limit, many_rows at
+   every r), each held and timed as above: where the regime switch lies.
 3. The same for the two attention kernels at OLMo-1B's full attention
    shapes (16 heads of 128): flash_attention at a 256-token prefill, a tail
    prefill (32 rows over 256 keys), GQA + window + softcap and bf16 (bf16
@@ -86,8 +92,10 @@ ring serving path and the int8 page pools.
    each; a fresh session restored from round 1 runs round 2 again and must
    end bit for bit where the uninterrupted one did.
 7. Trace: the first 600 steps of a DeltaGrad-L replay on `cuda`, timed on
-   the host, run under sync-debug mode, and profiled (device busy time,
-   idle share, blocking runtime calls, the costliest host ops).
+   the host (three times with Python's garbage collector on, three times
+   with it off, in turns), run under sync-debug mode, and profiled (device busy time,
+   idle share, device kernels a step, blocking runtime calls, the costliest
+   host ops and device kernels).
 8. Prints the kernels line (launches from the DeltaGrad-L run on `cuda`,
    for flash and paged attention from the OLMo-1B run on `cuda`, for the
    int8 partials from its int8 run, for block-sparse attention from phase
@@ -101,6 +109,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -127,7 +136,11 @@ CSRC = "src/repro_torch/kernels/csrc"
 ROUNDS, B = 3, 10  # cleaning rounds of the main path, labels a round
 CORR_R = (1, 3, 64)  # changed slots of a replay step in the kernel phase
 LINE_R = 3  # the r reported in the kernels line: a mimic replay step changes 1-3 rows
-TRACE_STEPS = 600  # replay steps the trace phase profiles (59 of them explicit)
+TRACE_STEPS = 600  # replay steps the trace phase profiles (69 explicit: 10 of burn-in, every 10th)
+HOST_CALLS = 200  # back-to-back calls of the host-cost figure
+REGIME_R = range(1, 11)  # replay_correction slots at which the kernel phase times both regimes
+TRACE_UNTRACED = 3  # untraced replays of the trace phase with the collector on, and as many off
+GATHERED = ("minibatch_grad", "replay_correction")  # the kernels of csrc/lr_gather.cuh
 REPLACES = {
     "lr_grad": "src/repro/kernels/lr_grad.py:36",
     "lr_hvp": "src/repro/kernels/lr_hvp.py:39",
@@ -221,6 +234,20 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     return total / reps
 
 
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds a call of fn() costs: `calls` calls back to back
+    with no synchronise inside, by the host clock, over `calls` (the device
+    runs behind; it is drained before and after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
 def bound(bytes_moved: float, ops: float,
           ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """Least time in ms: bytes over the memory rate or operations over the
@@ -260,14 +287,18 @@ def _template_args(targs: str) -> list[str]:
 
 
 def _kernel_name(mangled: str) -> str | None:
-    """`flash_kernel<128,f32>` from `_ZN4chef12flash_kernelILi128EfEEv...`."""
-    m = re.search(r"_ZN4chef(\d+)(\w+)", mangled)
-    if not m:
+    """`flash_kernel<128,f32>` from `_ZN4chef12flash_kernelILi128EfEEv...`,
+    `gather::many_rows<2,0>` from `_ZN4chef6gather9many_rowsILi2ELi0EEEv...`."""
+    start = mangled.find("_ZN4chef")
+    if start < 0:
         return None
-    n = int(m.group(1))
-    base, rest = m.group(2)[:n], m.group(2)[n:]
+    rest, names = mangled[start + len("_ZN4chef"):], []
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        names.append(rest[len(n):len(n) + int(n)])
+        rest = rest[len(n) + int(n):]
     args = _template_args(rest.split("EEv")[0]) if rest.startswith("I") else []
-    return base + (f"<{','.join(args)}>" if args else "")
+    return "::".join(names) + (f"<{','.join(args)}>" if args else "")
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -335,8 +366,8 @@ def sass_phase() -> None:
 
 def kernel_phase(torch, card_line: str) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
-    from repro_torch.kernels import (LAUNCHES, infl_scores, lr_grad, lr_hvp, minibatch_grad,
-                                     replay_correction)
+    from repro_torch.kernels import (LAUNCHES, common, infl_scores, lr_grad, lr_hvp,
+                                     minibatch_grad, replay_correction)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -422,12 +453,53 @@ def kernel_phase(torch, card_line: str) -> dict:
         bound_ms, bound_by = bound(nbytes, ops)
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None)
+        extra = {}
+        if name.split("/")[0] in GATHERED:
+            few, grid = common.gather_plan(shape[3], D, C, common.n_sms(dev))  # bs or r rows
+            # a yardstick: one torch.sum over the bytes of the rows read (bs, or
+            # the real slots), contiguous, timed the same way
+            flat, sink = torch.randn(shape[-1] * D, device=dev), torch.empty((), device=dev)
+            extra = {"host_us_per_call": host_us(torch, kern),
+                     "plan": {"regime": "few_rows" if few else "many_rows", "grid": grid},
+                     "contiguous_read_ms": time_ms(torch, lambda: torch.sum(flat, 0, out=sink))}
         emit({"phase": "kernel", "name": name, "shape": shape, "max_abs_err": err,
               "tolerance": f"max|kernel-plain| <= {TOL_REL}*max|plain| + {TOL_ABS} = {limit}",
               "bitwise_repeat": True, "kernel_ms": ms, "plain_ms": plain_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "card": card_line,
-              "launches": dict(LAUNCHES)})
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, **extra,
+              "card": card_line, "launches": dict(LAUNCHES)})
     results["replay_correction"] = results[f"replay_correction/r={LINE_R}"]
+    # replay_correction in each regime its launch takes at r slots (the last
+    # third padded): the plan forced, held and timed as above
+    plan, nb = common.gather_plan, -(-D // common.GATHER_THREADS)
+    try:
+        for r in REGIME_R:
+            real = r - r // 3
+            ci = torch.zeros(r, dtype=torch.int64, device=dev)
+            ci[:real] = torch.randperm(N, generator=g, device=dev)[:real]
+            cm = torch.zeros(r, device=dev)
+            cm[:real] = 1.0
+            args = (w, Xa, Y, Y_new, gw, gw_new, ci, cm, BS)
+            ref = replay_correction.replay_correction_plain(*args)
+            limit = TOL_REL * float(ref.abs().max()) + TOL_ABS
+            chosen = plan(r, D, C, common.n_sms(dev))
+            forced = [(False, min(r, common.GATHER_CTAS_PER_SM * common.n_sms(dev)))]
+            if r <= common.few_slots(C):
+                forced.insert(0, (True, nb))
+            for few, grid in forced:
+                common.gather_plan = lambda *_, few=few, grid=grid: (few, grid)
+                kern = lambda args=args: replay_correction.replay_correction(*args)  # noqa: E731
+                out = kern()
+                err = float((out - ref).abs().max())
+                if not (bool(torch.isfinite(out).all()) and err <= limit
+                        and torch.equal(out, kern())):
+                    fail(f"replay_correction at r = {r} in the forced plan {(few, grid)}: "
+                         f"max|kernel - plain| = {err} (limit {limit}) or no bitwise repeat")
+                emit({"phase": "regime", "name": "replay_correction", "r": r, "real": real,
+                      "regime": "few_rows" if few else "many_rows", "grid": grid,
+                      "chosen": (few, grid) == chosen, "max_abs_err": err,
+                      "kernel_ms": time_ms(torch, kern), "card": card_line})
+    finally:
+        common.gather_plan = plan
     return results
 
 
@@ -643,12 +715,13 @@ def _device_profile(torch, fn, top: int = 12) -> dict:
 
 def trace_phase(torch, card_line: str, ds, cfg) -> None:
     """Where a DeltaGrad-L replay step's time goes on the card: the first
-    TRACE_STEPS steps of a mimic replay (10 rows cleaned), once untraced
-    (host clock) and once under sync-debug mode (every synchronizing PyTorch
+    TRACE_STEPS steps of a mimic replay (10 rows cleaned), untraced (host
+    clock) TRACE_UNTRACED times with the garbage collector on and as many
+    with it off, in turns, then once under sync-debug mode (every synchronizing PyTorch
     call warns), then once under torch.profiler: the union of the kernels'
     device intervals against the host wall (the device's idle share), the
-    CUDA runtime calls that block the host, and the host ops that cost the
-    most."""
+    CUDA runtime calls that block the host, and the host ops and device
+    kernels that cost the most."""
     import warnings
 
     from repro_torch.core import deltagrad, lr_head
@@ -671,10 +744,19 @@ def trace_phase(torch, card_line: str, ds, cfg) -> None:
 
     replay()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    replay()
-    torch.cuda.synchronize()
-    wall_untraced = time.perf_counter() - t0
+    untraced = {"gc_on": [], "gc_off": []}  # host us a step, the collector on / off in turns
+    for _ in range(TRACE_UNTRACED):
+        for key, times in untraced.items():
+            gc.collect()
+            if key == "gc_off":
+                gc.disable()
+            try:
+                t0 = time.perf_counter()
+                replay()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) / n * 1e6)
+            finally:
+                gc.enable()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -685,13 +767,17 @@ def trace_phase(torch, card_line: str, ds, cfg) -> None:
     sync_warnings = sorted({str(w.message).splitlines()[0] for w in caught})
     prof = _device_profile(torch, replay)
     emit({"phase": "trace", "what": "deltagrad_replay, backend cuda, mimic widths",
-          "steps": n, "host_us_per_step_untraced": wall_untraced / n * 1e6,
+          "steps": n, "host_us_per_step_untraced": untraced["gc_on"],
+          "host_us_per_step_untraced_gc_off": untraced["gc_off"],
           "host_us_per_step_traced": prof["wall_s"] / n * 1e6,
           "device_busy_us_per_step": prof["busy_us"] / n, "device_kernels": prof["kernels"],
+          "device_kernels_per_step": prof["kernels"] / n,
           "device_idle_share": prof["idle_share"],
           "sync_debug_warnings": sync_warnings, "blocking_runtime_calls": prof["blocking"],
           "top_host_ops_self_us_per_step": [
               [k, c / n, us / n] for k, c, us in prof["top_host_ops"]],
+          "top_device_kernels_us_per_step": [
+              [k, c / n, us / n] for k, c, us in prof["top_device_kernels"]],
           "card": card_line})
 
 
@@ -1448,8 +1534,6 @@ def starcoder_phase(torch, card_line: str) -> dict:
     as in the OLMo-1B phase, and the counters must be equal. Then the
     unchunked cuda run once more under torch.profiler. Returns the launches
     of the two cuda runs."""
-    import gc
-
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1587,8 +1671,6 @@ def recurrent_phase(torch, card_line: str) -> dict:
     on cuda exactly the local_attention and decode_attention launches
     predicted before the runs; then the cuda run under torch.profiler.
     Returns the cuda run's launches."""
-    import gc
-
     import numpy as np
 
     from repro_torch.configs import get_config

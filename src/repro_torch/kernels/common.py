@@ -8,6 +8,7 @@ kernel to its plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -16,6 +17,12 @@ from repro_torch.kernels import build
 MAX_CLASSES = 16  # csrc/lr_rowcol.cuh: kMaxClasses
 COL_THREADS = 256  # csrc/lr_rowcol.cuh: kColThreads, columns per column-pass block
 BLOCKS_PER_SM = 4  # column-pass blocks the chunking aims at for each SM
+# the gathered kernels (csrc/lr_gather.cuh)
+GATHER_THREADS = 256  # kThreads: threads of a CTA, columns of a few-rows CTA
+GATHER_CTAS_PER_SM = 2  # kCtasPerSm: many-rows CTAs an SM holds at once
+FEW_MAX_FLOATS = 40960  # kFewMaxFloats: the few-rows kernel's shared memory at most, in floats
+FEW_MAX_ROWS = 6  # kFewMaxRows: the few-rows kernel's slots at most (the measured crossover)
+GATHER_SCRATCH_FLOATS = 1 << 24  # the many-rows partials [grid, C, D] at most (64 MB)
 
 # Launches of each kernel in this process: a wrapper adds one where it
 # launches its kernel and nowhere else.
@@ -53,9 +60,50 @@ def chunk_rows(n_rows: int, d: int, n_sms: int) -> tuple[int, int]:
     return rows, -(-n_rows // rows)
 
 
+def few_slots(n_classes: int) -> int:
+    """Rows the few-rows kernel takes at `n_classes` (csrc/lr_gather.cuh:
+    few_slots): a warp holds one lane per row and class, and past
+    FEW_MAX_ROWS rows the many-rows grid is faster (at C 2 on the H100:
+    chip_smoke.py's regime comparison)."""
+    return min(FEW_MAX_ROWS, 32 // n_classes)
+
+
+def row_pitch(n: int) -> int:
+    """Floats a row of n floats takes in the gathered kernels' shared memory
+    (csrc/lr_gather.cuh: row_pitch): rounded up to 16 bytes, and 16 bytes
+    more for the copy's shift."""
+    return (n + 3) // 4 * 4 + 4
+
+
+def gather_plan(n_rows: int, d: int, n_classes: int, n_sms: int) -> tuple[bool, int]:
+    """(few, grid) of a gathered kernel's one launch (csrc/lr_gather.cuh).
+    Few rows (at most `few_slots`, their rows and w's at most FEW_MAX_FLOATS
+    in shared memory): the few-rows kernel, one CTA per block of
+    GATHER_THREADS columns, each taking every row. Otherwise the many-rows
+    kernel: a cooperative grid of at most GATHER_CTAS_PER_SM CTAs for each
+    of the card's `n_sms` SMs and one per row, each summing the rows
+    `gather_rows` gives it into its own [C, D] partial (at most
+    GATHER_SCRATCH_FLOATS in all). The plan depends on the shapes and the SM
+    count only, and so does every sum's order."""
+    if n_rows <= few_slots(n_classes) and (n_rows + n_classes) * row_pitch(d) <= FEW_MAX_FLOATS:
+        return True, -(-d // GATHER_THREADS)
+    fit = max(1, GATHER_SCRATCH_FLOATS // (n_classes * d))
+    return False, min(n_rows, GATHER_CTAS_PER_SM * n_sms, fit)
+
+
+def gather_rows(cta: int, grid: int, n_rows: int) -> tuple[int, int]:
+    """The contiguous rows [start, stop) many-rows CTA `cta` of `grid` takes."""
+    return cta * n_rows // grid, (cta + 1) * n_rows // grid
+
+
+@functools.cache
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def n_sms(device: torch.device) -> int:
-    """Streaming multiprocessors of the card `device`."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """Streaming multiprocessors of the card `device` (asked once a card)."""
+    return _n_sms(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def check(kernel: str, n_classes: int, **tensors) -> torch.device:
@@ -67,16 +115,18 @@ def check(kernel: str, n_classes: int, **tensors) -> torch.device:
         raise ValueError(f"{kernel}: {n_classes} classes; the kernel takes 1 to {MAX_CLASSES}")
     device = None
     for name, (t, shape) in tensors.items():
+        dev = t.device  # read once: every attribute read costs host time
+        if dev.type != "cuda":
+            raise ValueError(f"{kernel}: {name} is on {dev}, not on a CUDA device")
+        if device is None:
+            device = dev
+        elif dev != device:
+            raise ValueError(f"{kernel}: {name} is on {dev}, the others on {device}")
         want = torch.int64 if name in ("idx", "ci") else torch.float32
-        if t.device.type != "cuda":
-            raise ValueError(f"{kernel}: {name} is on {t.device}, not on a CUDA device")
-        if device is not None and t.device != device:
-            raise ValueError(f"{kernel}: {name} is on {t.device}, the others on {device}")
-        device = t.device
-        if t.dtype != want or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        if t.dtype != want or t.shape != shape or not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be a contiguous {want} tensor of shape "
                              f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
-        if t.numel() == 0:
+        if 0 in shape:
             raise ValueError(f"{kernel}: {name} is empty")
     return device
 
@@ -113,8 +163,10 @@ def check_attention(kernel: str, **tensors) -> torch.device:
 
 def launch(kernel: str, fn, device: torch.device, *args) -> None:
     """Call the C entry point `fn` on the current stream of `device`, raise
-    if it reports an error, and count the launch."""
-    stream = torch.cuda.current_stream(device).cuda_stream
+    if it reports an error, and count the launch. The stream's handle comes
+    from PyTorch's raw accessor (the one Triton launches with), which builds
+    no Stream object."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
     err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err}: {build.error_string(kernel, err)}")

@@ -9,6 +9,6 @@ extern "C" int chef_lr_hvp(const float* w, const float* v, const float* Xa, cons
                            int n, int d, int c, int chunk_rows, float l2, float* R,
                            float* partial, float* out, void* stream) {
   return static_cast<int>(chef::launch_rowcol<chef::kHvp>(
-      Xa, d, nullptr, n, c, chunk_rows, w, v, nullptr, gw, chef::CorrInputs{},
-      static_cast<float>(n), l2, v, R, partial, out, static_cast<cudaStream_t>(stream)));
+      Xa, d, n, c, chunk_rows, w, v, nullptr, gw, static_cast<float>(n), l2, v, R, partial, out,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -1,13 +1,11 @@
-// Device code shared by the LR-head reductions: lr_grad, lr_hvp,
-// minibatch_grad and replay_correction. Each computes
+// Device code of the full-batch LR-head reductions, lr_grad and lr_hvp, and
+// what the gathered ones (lr_gather.cuh) share with them. Each computes
 //
-//     out[c, d] = (1/denom) * sum_i r[i, c] * Xa[src(i), d] + l2 * base[c, d]
+//     out[c, d] = (1/denom) * sum_i r[i, c] * Xa[i, d] + l2 * base[c, d]
 //
-// where r[i] is a per-row residual over the C classes (src(i) = idx[i] for the
-// gathered rows, i otherwise; replay_correction has no l2 term). The TPU
-// kernels carry the [C, D] sum in VMEM across a sequential grid; H100 blocks
-// run in parallel and in no order, so the sum is taken in three passes with no
-// float atomics:
+// where r[i] is a per-row residual over the C classes. The TPU kernels carry
+// the [C, D] sum in VMEM across a sequential grid; H100 blocks run in parallel
+// and in no order, so the sum is taken in three passes with no float atomics:
 //
 //   row_pass   one warp per row: logits z = x.w^T (and u = x.v^T for the HVP)
 //              over D with lane-strided scalar loads (lane k reads columns
@@ -39,6 +37,7 @@ constexpr int kRowWarps = 8;      // rows (one warp each) per row-pass block
 constexpr int kColThreads = 256;  // columns per column-pass block
 constexpr int kMaxClasses = 16;   // kernels/common.py: MAX_CLASSES
 
+// kGrad and kHvp run here; kGrad and kCorr in the gathered kernels (lr_gather.cuh).
 enum Residual { kGrad = 0, kHvp = 1, kCorr = 2 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -47,28 +46,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Extra inputs of the kCorr residual (nullptr in the other modes): the
-// cleaned labels and weights of every sample, and the mask of the gathered
-// slots (0 on a padded slot).
-struct CorrInputs {
-  const float* Y_new;
-  const float* g_new;
-  const float* mask;
-};
-
 // kGrad: r = (p - y) * g.  kHvp: r = (p*u - p*(p.u)) * g.  p = softmax(x.w^T).
-// kCorr: r = (p - y_new) * (g_new * m) - (p - y) * (g * m), the DeltaGrad-L
-// correction of one changed row (both label branches share one softmax).
 template <int C, int MODE>
 __global__ void __launch_bounds__(kRowWarps * kWarp)
-row_pass(const float* __restrict__ Xa, int D, const int64_t* __restrict__ idx, int n_rows,
-         const float* __restrict__ w, const float* __restrict__ v,
-         const float* __restrict__ Y, const float* __restrict__ gw, CorrInputs corr,
-         float* __restrict__ R) {
+row_pass(const float* __restrict__ Xa, int D, int n_rows, const float* __restrict__ w,
+         const float* __restrict__ v, const float* __restrict__ Y,
+         const float* __restrict__ gw, float* __restrict__ R) {
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kRowWarps + threadIdx.x / kWarp;
   if (row >= n_rows) return;
-  const int64_t src = idx ? idx[row] : row;
+  const int64_t src = row;
   const float* x = Xa + src * D;
   float z[C], u[C];
 #pragma unroll
@@ -111,12 +98,8 @@ row_pass(const float* __restrict__ Xa, int D, const int64_t* __restrict__ idx, i
     float r;
     if (MODE == kGrad) {
       r = (z[c] - Y[src * C + c]) * g;
-    } else if (MODE == kHvp) {
-      r = (z[c] * u[c] - z[c] * pu) * g;
     } else {
-      const float cm = corr.mask[row];
-      r = (z[c] - corr.Y_new[src * C + c]) * (corr.g_new[src] * cm) -
-          (z[c] - Y[src * C + c]) * (g * cm);
+      r = (z[c] * u[c] - z[c] * pu) * g;
     }
     R[(int64_t)row * C + c] = r;
   }
@@ -124,8 +107,8 @@ row_pass(const float* __restrict__ Xa, int D, const int64_t* __restrict__ idx, i
 
 template <int C>
 __global__ void __launch_bounds__(kColThreads)
-col_pass(const float* __restrict__ Xa, int D, const int64_t* __restrict__ idx, int n_rows,
-         int chunk_rows, const float* __restrict__ R, float* __restrict__ partial) {
+col_pass(const float* __restrict__ Xa, int D, int n_rows, int chunk_rows,
+         const float* __restrict__ R, float* __restrict__ partial) {
   const int chunk = blockIdx.y;
   const int row0 = chunk * chunk_rows;
   const int row1 = min(row0 + chunk_rows, n_rows);
@@ -134,11 +117,11 @@ col_pass(const float* __restrict__ Xa, int D, const int64_t* __restrict__ idx, i
   float acc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = 0.f;
-  // R and idx are read at one address by the whole block (a broadcast from
-  // L1); the Xa reads of a warp are 32 neighbouring columns of one row.
+  // R is read at one address by the whole block (a broadcast from L1); the
+  // Xa reads of a warp are 32 neighbouring columns of one row.
 #pragma unroll 8
   for (int i = row0; i < row1; ++i) {
-    const int64_t src = idx ? idx[i] : i;
+    const int64_t src = i;
     const float xv = Xa[src * D + d];
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[c] = fmaf(R[(int64_t)i * C + c], xv, acc[c]);
@@ -157,14 +140,13 @@ __global__ void chunk_sum(const float* __restrict__ partial, int n_chunks, int C
 }
 
 template <int C, int MODE>
-void launch_passes(const float* Xa, int D, const int64_t* idx, int n_rows, int chunk_rows,
-                   const float* w, const float* v, const float* Y, const float* gw,
-                   CorrInputs corr, float* R, float* partial, cudaStream_t st) {
+void launch_passes(const float* Xa, int D, int n_rows, int chunk_rows, const float* w,
+                   const float* v, const float* Y, const float* gw, float* R, float* partial,
+                   cudaStream_t st) {
   const dim3 rgrid((n_rows + kRowWarps - 1) / kRowWarps);
   const dim3 cgrid((D + kColThreads - 1) / kColThreads, (n_rows + chunk_rows - 1) / chunk_rows);
-  row_pass<C, MODE><<<rgrid, kRowWarps * kWarp, 0, st>>>(Xa, D, idx, n_rows, w, v, Y, gw, corr,
-                                                         R);
-  col_pass<C><<<cgrid, kColThreads, 0, st>>>(Xa, D, idx, n_rows, chunk_rows, R, partial);
+  row_pass<C, MODE><<<rgrid, kRowWarps * kWarp, 0, st>>>(Xa, D, n_rows, w, v, Y, gw, R);
+  col_pass<C><<<cgrid, kColThreads, 0, st>>>(Xa, D, n_rows, chunk_rows, R, partial);
 }
 
 // All three passes on `st`. Scratch: R [n_rows, C], partial [n_chunks, C, D]
@@ -173,19 +155,17 @@ void launch_passes(const float* Xa, int D, const int64_t* idx, int n_rows, int c
 // base == nullptr drops the l2 term. Returns cudaGetLastError() after the
 // last launch.
 template <int MODE>
-cudaError_t launch_rowcol(const float* Xa, int D, const int64_t* idx, int n_rows, int C,
-                          int chunk_rows, const float* w, const float* v, const float* Y,
-                          const float* gw, CorrInputs corr, float denom, float l2,
-                          const float* base, float* R, float* partial, float* out,
-                          cudaStream_t st) {
+cudaError_t launch_rowcol(const float* Xa, int D, int n_rows, int C, int chunk_rows,
+                          const float* w, const float* v, const float* Y, const float* gw,
+                          float denom, float l2, const float* base, float* R, float* partial,
+                          float* out, cudaStream_t st) {
   if (n_rows < 1 || D < 1 || chunk_rows < 1) return cudaErrorInvalidValue;
   const int n_chunks = (n_rows + chunk_rows - 1) / chunk_rows;
   if (n_chunks > 65535) return cudaErrorInvalidValue;  // grid y limit
   switch (C) {
 #define CHEF_CASE(K)                                                                      \
   case K:                                                                                 \
-    launch_passes<K, MODE>(Xa, D, idx, n_rows, chunk_rows, w, v, Y, gw, corr, R, partial, \
-                           st);                                                           \
+    launch_passes<K, MODE>(Xa, D, n_rows, chunk_rows, w, v, Y, gw, R, partial, st); \
     break;
     CHEF_CASE(1) CHEF_CASE(2) CHEF_CASE(3) CHEF_CASE(4) CHEF_CASE(5) CHEF_CASE(6)
     CHEF_CASE(7) CHEF_CASE(8) CHEF_CASE(9) CHEF_CASE(10) CHEF_CASE(11) CHEF_CASE(12)

@@ -5,15 +5,19 @@ right term, as Section 4.2 adapts it to label cleaning):
     out = ((p − Y_new[ci])·(γ_new[ci]·cm) − (p − Y_old[ci])·(γ_old[ci]·cm))ᵀ·Xa[ci] / |B|
 
 Replaces the TPU kernel
-`repro/kernels/replay_correction.py::replay_correction_pallas`. The CUDA
-kernel (`csrc/replay_correction.cu`, design in `csrc/lr_rowcol.cuh`) is a
-residual mode of the shared row/column reduction: a warp per gathered row
-computes the logits, one softmax and the two-branch residual, then the
-column pass sums residualᵀ·Xa[ci] in a fixed order with no atomics, so a
-replay repeats bit for bit. A padded slot (cm = 0, ci = 0) adds exactly
-zero. Bound on the H100: device-memory bytes, one read of the changed rows.
-At the mimic widths a replay step changes 1 to 3 rows (about 25 KB), far
-below what a launch costs, so each launch is launch latency.
+`repro/kernels/replay_correction.py::replay_correction_pallas`. Bound on the
+H100: at the mimic widths a replay step changes 1 to 3 rows (about 25 KB,
+0.015 us of bytes), so a call is latency: the launch, then the ids, then the
+rows, two dependent loads; with many slots, device-memory bytes. The CUDA
+kernel (`csrc/replay_correction.cu`, design in `csrc/lr_gather.cuh`) is the
+gathered reduction's correction mode, one launch a call: up to
+`common.few_slots` slots, one CTA per block of 256 columns, each computing
+every slot's logits with all its threads (every copy issued at once), one
+softmax and the two-branch residual, then its columns of residualᵀ·Xa[ci],
+with no scratch; with more slots, the many-rows grid `minibatch_grad` runs.
+Sums run in an order fixed by the shapes and the SM count, with no atomics,
+so a replay repeats bit for bit. A padded slot (cm = 0, ci = 0) adds exactly
+zero.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch
 
 from repro_torch.kernels import build, common
 
-_ARGTYPES = [common.PTR] * 8 + [common.INT] * 4 + [common.FLOAT] + [common.PTR] * 4
+_ARGTYPES = [common.PTR] * 8 + [common.INT] * 5 + [common.FLOAT] + [common.PTR] * 3
 
 
 def replay_correction_plain(w, Xa, Y_old, Y_new, w_old, w_new, ci, cm,
@@ -47,13 +51,12 @@ def replay_correction(w, Xa, Y_old, Y_new, w_old, w_new, ci, cm,
     device = common.check("replay_correction", c, w=(w, (c, d)), Xa=(Xa, (n, d)),
                           Y_old=(Y_old, (n, c)), Y_new=(Y_new, (n, c)), w_old=(w_old, (n,)),
                           w_new=(w_new, (n,)), ci=(ci, (r,)), cm=(cm, (r,)))
-    R = Xa.new_empty(r, c)
-    rows, chunks = common.chunk_rows(r, d, common.n_sms(device))
-    partial = Xa.new_empty(chunks, c, d)
+    few, grid = common.gather_plan(r, d, c, common.n_sms(device))
+    partial = None if few else Xa.new_empty(grid, c, d)  # kept alive past the launch
     out = Xa.new_empty(c, d)
     fn = build.entry("replay_correction", "chef_replay_correction", _ARGTYPES)
     common.launch("replay_correction", fn, device, w.data_ptr(), Xa.data_ptr(),
                   Y_old.data_ptr(), Y_new.data_ptr(), w_old.data_ptr(), w_new.data_ptr(),
-                  ci.data_ptr(), cm.data_ptr(), r, d, c, rows, float(batch_size), R.data_ptr(),
-                  partial.data_ptr(), out.data_ptr())
+                  ci.data_ptr(), cm.data_ptr(), r, d, c, grid, few, float(batch_size),
+                  None if few else partial.data_ptr(), out.data_ptr())
     return out

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (LAUNCHES, infl_scores, lr_grad, lr_hvp, minibatch_grad,
-                                 replay_correction)
+from repro_torch.kernels import (LAUNCHES, common, infl_scores, lr_grad, lr_hvp,
+                                 minibatch_grad, replay_correction)
 
 pytestmark = pytest.mark.gpu
 
@@ -59,13 +59,42 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("op", sorted(CASES))
-@pytest.mark.parametrize("n,d,c,bs", [(67, 33, 2, 23), (67, 33, 3, 23), (1, 1, 1, 1),
-                                      (515, 257, 16, 300), (4099, 2049, 2, 2000)])
+def _rows(spec, dev) -> int:
+    """A row count: an int, or (k, a) for k times the many-rows kernel's
+    largest grid on this card (GATHER_CTAS_PER_SM CTAs an SM) plus a."""
+    if isinstance(spec, int):
+        return spec
+    k, a = spec
+    return k * common.GATHER_CTAS_PER_SM * common.n_sms(dev) + a
+
+
+def _spec_id(spec) -> str:
+    return str(spec) if isinstance(spec, int) else f"{spec[0]}ctas{spec[1]:+d}"
+
+
+# the gathered kernels' regimes (csrc/lr_gather.cuh, common.gather_plan):
+# rows below, at and above the many-rows grid and not a multiple of it; the
+# few-rows switch on both sides (few_slots: 6 at C 2, 2 at C 16); C 16 at
+# D 2049 and D 20,001 (wider than a thread's registers hold: the streamed
+# rows); a batch of 3000 ids over 5 rows (each repeated)
+GATHER_SHAPES = [(4099, 2049, 2, 100), (4099, 2049, 2, (1, 0)), (4099, 2049, 2, (3, 7)),
+                 (300, 2049, 2, 6), (300, 2049, 2, 7), (300, 2049, 16, 2), (300, 2049, 16, 3),
+                 (1001, 2049, 16, 500), (600, 20001, 16, 300), (5, 2049, 2, 3000),
+                 (67, 2305, 3, 40)]
+
+
+@pytest.mark.parametrize("op,n,d,c,bs", [
+    pytest.param(op, *shape, id=f"{'-'.join(map(str, shape))}-{op}")
+    for op in sorted(CASES) for shape in [(67, 33, 2, 23), (67, 33, 3, 23), (1, 1, 1, 1),
+                                          (515, 257, 16, 300), (4099, 2049, 2, 2000)]] + [
+    pytest.param("minibatch_grad", n, d, c, bs,
+                 id=f"{n}-{d}-{c}-{_spec_id(bs)}-minibatch_grad")
+    for n, d, c, bs in GATHER_SHAPES])
 def test_kernel_matches_plain(op, n, d, c, bs):
     """Kernel == plain version within the tolerance, repeats bit for bit, and
     counts one launch per call."""
-    t = _data(_card(), n, d, c, bs)
+    dev = _card()
+    t = _data(dev, n, d, c, _rows(bs, dev))
     kern, plain = CASES[op]
     before = LAUNCHES[op]
     out = kern(t)
@@ -142,13 +171,15 @@ def _correction_data(dev, n, d, c, r, seed=0):
     return (t["w"], t["Xa"], t["Y"], Y_new, t["gw"], torch.ones(n, device=dev), ci, cm, 2000)
 
 
-@pytest.mark.parametrize("n,d,c,r", [(67, 33, 2, 1), (67, 33, 3, 5), (1, 1, 1, 1),
-                                     (515, 257, 16, 300), (4099, 2049, 2, 3),
-                                     (4099, 2049, 3, 2000)])
+@pytest.mark.parametrize("n,d,c,r", [
+    pytest.param(n, d, c, r, id=f"{n}-{d}-{c}-{_spec_id(r)}")
+    for n, d, c, r in [(67, 33, 2, 1), (67, 33, 3, 5), (1, 1, 1, 1), (515, 257, 16, 300),
+                       (4099, 2049, 2, 3), (4099, 2049, 3, 2000)] + GATHER_SHAPES])
 def test_replay_correction_matches_plain(n, d, c, r):
     """Kernel == plain version within the tolerance, padded slots add
     nothing, the kernel repeats bit for bit and counts one launch a call."""
-    args = _correction_data(_card(), n, d, c, r)
+    dev = _card()
+    args = _correction_data(dev, n, d, c, _rows(r, dev))
     before = LAUNCHES["replay_correction"]
     out = replay_correction.replay_correction(*args)
     torch.cuda.synchronize()

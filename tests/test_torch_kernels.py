@@ -7,6 +7,8 @@ interpret mode) on the same numpy inputs: odd N = 67, D = 33, C in {2, 3};
 float32, rtol 1e-5, atol 1e-6. The kernels themselves run only on the card:
 tests/test_torch_gpu.py holds them against these plain versions there.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -138,15 +140,37 @@ def test_check_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("n_rows,d,sms", [(78_487, 2049, 132), (2000, 2049, 132),
                                           (579, 2049, 132), (67, 33, 132), (1, 1, 1),
-                                          (5, 700, 16)])
+                                          (5, 700, 16),
+                                          # the gathered kernels' plan: slots around
+                                          # the few-rows switch, the grid, wide rows
+                                          (3, 2049, 132), (6, 2049, 132), (7, 2049, 132),
+                                          (264, 2049, 132), (271, 2049, 132),
+                                          (300, 20_001, 132), (2, 40_000, 132)])
 def test_chunking_covers_rows_and_fills_the_card(n_rows, d, sms):
     """The column pass's chunks cover every row exactly once, fit the grid,
-    and aim at BLOCKS_PER_SM blocks for each SM."""
+    and aim at BLOCKS_PER_SM blocks for each SM. The gathered kernels' plan
+    depends on the shapes and the SM count only: few rows go to one CTA per
+    block of columns that each take every row and fit shared memory; more
+    go to a grid the card holds at once, at most one CTA a row, whose
+    contiguous ranges take every row exactly once and whose partials fit
+    the scratch cap."""
     rows, chunks = common.chunk_rows(n_rows, d, sms)
     assert rows >= 1 and (chunks - 1) * rows < n_rows <= chunks * rows
     assert chunks <= 65535
     want = -(-common.BLOCKS_PER_SM * sms // -(-d // common.COL_THREADS))
     assert min(n_rows, want) / 2 <= chunks <= want
+    for c in (1, 2, 3, 16):
+        few, grid = common.gather_plan(n_rows, d, c, sms)
+        assert (few, grid) == common.gather_plan(n_rows, d, c, sms)
+        if few:
+            assert n_rows <= common.few_slots(c) and c * common.few_slots(c) <= 32
+            assert (n_rows + c) * common.row_pitch(d) <= common.FEW_MAX_FLOATS
+            assert (grid - 1) * common.GATHER_THREADS < d <= grid * common.GATHER_THREADS
+            continue
+        assert 1 <= grid <= min(n_rows, common.GATHER_CTAS_PER_SM * sms)
+        assert grid * c * d <= max(common.GATHER_SCRATCH_FLOATS, c * d)
+        taken = [i for b in range(grid) for i in range(*common.gather_rows(b, grid, n_rows))]
+        assert taken == list(range(n_rows))
 
 
 def test_build_command_and_hash(monkeypatch):
@@ -172,12 +196,34 @@ def test_no_nvcc_means_no_build(monkeypatch, tmp_path):
     assert not (tmp_path / "b").exists()
 
 
+def _header_function(src: str, name: str):
+    """A `constexpr int name(int v) { return ...; }` of a CUDA header as a
+    Python function of v, over the header's integer constants."""
+    arg, body = re.search(rf"constexpr int {name}\(int (\w+)\) \{{\s*return (.+?);\s*\}}",
+                          src).groups()
+    cond = re.fullmatch(r"(.+) \? (.+) : (.+)", body)
+    if cond:
+        body = f"({cond[2]}) if ({cond[1]}) else ({cond[3]})"
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    code = compile(body.replace("/", "//"), name, "eval")
+    return lambda v: eval(code, dict(consts), {arg: v})
+
+
 def test_sources_and_wrappers_agree_on_constants():
-    """The constants the wrappers size scratch and checks with are the ones
-    in the CUDA header."""
+    """The constants and the plan's helpers the wrappers size scratch and
+    checks with are the ones in the CUDA headers."""
     hdr = (build.CSRC / "lr_rowcol.cuh").read_text()
     assert f"kColThreads = {common.COL_THREADS};" in hdr
     assert f"kMaxClasses = {common.MAX_CLASSES};" in hdr
+    gather = (build.CSRC / "lr_gather.cuh").read_text()
+    assert f"kThreads = {common.GATHER_THREADS};" in gather
+    assert f"kCtasPerSm = {common.GATHER_CTAS_PER_SM};" in gather
+    assert f"kFewMaxFloats = {common.FEW_MAX_FLOATS};" in gather
+    few_slots = _header_function(gather, "few_slots")
+    assert [few_slots(c) for c in range(1, common.MAX_CLASSES + 1)] == [
+        common.few_slots(c) for c in range(1, common.MAX_CLASSES + 1)]
+    row_pitch = _header_function(gather, "row_pitch")
+    assert [row_pitch(n) for n in range(1, 4100)] == [common.row_pitch(n) for n in range(1, 4100)]
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert f'"chef_{name}"' in (build.CSRC.parent / f"{name}.py").read_text()
