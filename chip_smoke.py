@@ -12,13 +12,14 @@ ring serving path and the int8 page pools.
    fails where one has none.
 2. For each CHEF kernel, at the main path's shapes (the mimic widths of the
    paper's Table 3; replay_correction at r = 1, 3 and 64 changed slots, a
-   third of them padded): makes inputs on the card from a fixed seed,
+   third of them padded; lr_hvp also at 3 and 16 classes and at 200 rows,
+   fewer than its grid): makes inputs on the card from a fixed seed,
    launches the kernel, holds it against its plain PyTorch version
    (max|kernel - plain| <= 1e-4 * max|plain| + 1e-6), checks that it repeats
-   bit for bit, and times both with CUDA events; for the two gathered
-   kernels also the host's cost of a call (200 calls back to back, no
-   synchronise inside), their launch plan (regime and grid) and, as a
-   yardstick, the time of one torch.sum over the same bytes laid out
+   bit for bit, and times both with CUDA events; for the three kernels of
+   csrc/lr_gather.cuh also the host's cost of a call (200 calls back to
+   back, no synchronise inside), their launch plan (regime, grid) and,
+   as a yardstick, the time of one torch.sum over the same bytes laid out
    contiguously; and replay_correction at r = 1 to 10 slots in each regime
    the launch takes there (few_rows up to its slot limit, many_rows at
    every r), each held and timed as above: where the regime switch lies.
@@ -40,7 +41,9 @@ ring serving path and the int8 page pools.
 3c. The same for the ring and int8 kernels: decode_attention at
    RecurrentGemma-9B's decode shape (16 query heads over 1 kv head of 256,
    a wrapped ring of 2048) and at OLMo-1B's ring shape (plain, softcap,
-   bf16), beside one SDPA call; the int8 paged partials at OLMo-1B's and
+   bf16), beside one SDPA call, each with its host cost, its launch plan
+   (chunk, split, grid) and one torch.sum of the ring's K and V bytes; the
+   int8 paged partials at OLMo-1B's and
    StarCoder2-3B's decode shapes; local_attention at RecurrentGemma-9B's
    3000-token prefill (D 256), beside SDPA and bit for bit flash.
 4. Serving: OLMo-1B at full width (float32, random weights from SEED) in
@@ -106,6 +109,15 @@ ring serving path and the int8 page pools.
 
 Any failure exits non-zero. Needs a CUDA device; imports nothing of JAX or of
 the JAX package.
+
+A second mode, on one card, measures the redesigned lr_hvp and
+decode_attention against the parent commit:
+
+    python3 chip_smoke.py --compare PARENT   # PARENT: a checkout of the parent commit
+
+It runs both trees' kernels (and the CG solve) at the same cases in fresh
+processes in turns, with each call's device time and host enqueue time, and
+checks that lr_grad's results are equal on both.
 """
 from __future__ import annotations
 
@@ -140,7 +152,13 @@ TRACE_STEPS = 600  # replay steps the trace phase profiles (69 explicit: 10 of b
 HOST_CALLS = 200  # back-to-back calls of the host-cost figure
 REGIME_R = range(1, 11)  # replay_correction slots at which the kernel phase times both regimes
 TRACE_UNTRACED = 3  # untraced replays of the trace phase with the collector on, and as many off
-GATHERED = ("minibatch_grad", "replay_correction")  # the kernels of csrc/lr_gather.cuh
+GATHERED = ("minibatch_grad", "replay_correction")  # the gathered kernels of csrc/lr_gather.cuh
+# lr_hvp in the kernel phase: name, rows, classes (mimic; 3 and 16 classes,
+# whose columns of w, v and the partial do not fit a thread's registers at
+# D 2049; fewer rows than the many-rows grid)
+HVP_CASES = (("lr_hvp", N, C), ("lr_hvp/C=3", N, 3), ("lr_hvp/C=16", N, 16),
+             ("lr_hvp/N=200", 200, C))
+COMPARE_PROCS = 3  # fresh processes a side in the comparison mode, in turns
 REPLACES = {
     "lr_grad": "src/repro/kernels/lr_grad.py:36",
     "lr_hvp": "src/repro/kernels/lr_hvp.py:39",
@@ -213,25 +231,34 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = 20) -> float:
-    """Mean device time of fn() in ms, by CUDA events. Before each call L2
-    (50 MB) is flushed, as the loop finds its inputs there, and the stream
-    is held by a sleep so that the host's launch time is not counted."""
+def call_times(torch, fn, reps: int = 20) -> tuple[list, list]:
+    """Device time of each of `reps` calls of fn() in ms, by CUDA events,
+    and the host's time to enqueue each (the two events and the call). Before
+    each call L2 (50 MB) is flushed, as the loop finds its inputs there, and
+    the stream is held by a sleep (about 1 ms) so that the host's launch
+    time is not counted unless enqueueing outlasts the sleep."""
     flush = torch.empty(32 * 2**20, device="cuda")
     for _ in range(3):
         fn()
-    total = 0.0
+    device, host = [], []
     for _ in range(reps):
         torch.cuda._sleep(2_000_000)
         flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         a.record()
         fn()
         b.record()
+        host.append((time.perf_counter() - t0) * 1e3)
         b.synchronize()
-        total += a.elapsed_time(b)
-    return total / reps
+        device.append(a.elapsed_time(b))
+    return device, host
+
+
+def time_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device time of fn() in ms (call_times)."""
+    return sum(call_times(torch, fn, reps)[0]) / reps
 
 
 def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
@@ -410,9 +437,6 @@ def kernel_phase(torch, card_line: str) -> dict:
                     lambda: lr_grad.lr_grad_plain(w, Xa_val, Y_val, ones_val, 0.0),
                     [N_VAL, D, C], f * (N_VAL * D + N_VAL * C + N_VAL + 2 * C * D),
                     4.0 * N_VAL * C * D),
-        "lr_hvp": (lambda: lr_hvp.lr_hvp(w, v, Xa, gw, 0.05),
-                   lambda: lr_hvp.lr_hvp_plain(w, v, Xa, gw, 0.05),
-                   [N, D, C], f * (N * D + N + 3 * C * D), 6.0 * N * C * D),
         "minibatch_grad": (lambda: minibatch_grad.minibatch_grad(w, Xa, Y, gw, next_idx(), 0.05),
                            lambda: minibatch_grad.minibatch_grad_plain(w, Xa, Y, gw, next_idx(),
                                                                        0.05),
@@ -422,6 +446,14 @@ def kernel_phase(torch, card_line: str) -> dict:
                         lambda: infl_scores.infl_scores_plain(v, Xa, P, Y, 0.8),
                         [N, D, C], f * (N * D + 3 * N * C + C * D), 2.0 * N * C * D + 6.0 * N * C),
     }
+    for name, n, c in HVP_CASES:
+        wc = w if c == C else 0.01 * torch.randn(c, D, generator=g, device=dev)
+        vc = v if c == C else 0.01 * torch.randn(c, D, generator=g, device=dev)
+        args = (wc, vc, Xa[:n], gw[:n], 0.05)
+        # bytes: the rows, their weights, w and v in, the result out
+        cases[name] = (lambda args=args: lr_hvp.lr_hvp(*args),
+                       lambda args=args: lr_hvp.lr_hvp_plain(*args),
+                       [n, D, c], f * (n * D + n + 3 * c * D), 6.0 * n * c * D)
     for r, (ci, cm, real) in corr.items():
         args = (w, Xa, Y, Y_new, gw, gw_new, ci, cm, BS)
         cases[f"replay_correction/r={r}"] = (
@@ -454,6 +486,13 @@ def kernel_phase(torch, card_line: str) -> dict:
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None)
         extra = {}
+        if name.startswith("lr_hvp"):
+            # a yardstick: one torch.sum over the same rows (contiguous already)
+            flat, sink = Xa[:shape[0]].view(-1), torch.empty((), device=dev)
+            _, grid = common.gather_plan(*shape, common.n_sms(dev), few_ok=False)
+            extra = {"host_us_per_call": host_us(torch, kern),
+                     "plan": {"grid": grid, "rows_per_cta": shape[0] / grid},
+                     "contiguous_read_ms": time_ms(torch, lambda: torch.sum(flat, 0, out=sink))}
         if name.split("/")[0] in GATHERED:
             few, grid = common.gather_plan(shape[3], D, C, common.n_sms(dev))  # bs or r rows
             # a yardstick: one torch.sum over the bytes of the rows read (bs, or
@@ -1104,13 +1143,14 @@ def ring_int8_kernel_phase(torch, card_line: str) -> dict:
         size = q.element_size()
         # q in and out, the valid slots' K and V rows, the mask
         nbytes = size * (2 * B * Hq * D + 2 * B * n_valid * Hkv * D) + W
+        kern = lambda a=(q, k, v, valid, spec): ops.decode_attention(*a)  # noqa: E731
         results[name] = _check_and_time(
-            torch, name, lambda a=(q, k, v, valid, spec): ops.decode_attention(*a),
-            lambda a=(q, k, v, valid, spec): ops.decode_attention_ref(*a), library,
-            [B, Hkv, G, D, W, pos, window, softcap, str(dtype)], nbytes,
+            torch, name, kern, lambda a=(q, k, v, valid, spec): ops.decode_attention_ref(*a),
+            library, [B, Hkv, G, D, W, pos, window, softcap, str(dtype)], nbytes,
             4.0 * B * Hq * D * n_valid, BF16_OPS_PER_S if dtype == torch.bfloat16
             else FP32_OPS_PER_S, card_line, bf16=dtype == torch.bfloat16,
             library_computes="SDPA, float32, the slot mask broadcast")
+        emit({"phase": "kernel_extra", "name": name, **_decode_extra(torch, kern, q, k, v)})
 
     def quant_case(name, q, table, pos, n_phys, P, window):
         B, Hkv, G, D = q.shape
@@ -1186,6 +1226,22 @@ def ring_int8_kernel_phase(torch, card_line: str) -> dict:
     if not same:
         fail("local attention at D 256 is not bit for bit flash attention")
     return results
+
+
+def _decode_extra(torch, kern, q, k, v) -> dict:
+    """Beside a decode case: the host's cost of a call, the launch plan (the
+    chunk, the split and the grid), and a yardstick: one torch.sum over the
+    ring's K and V bytes laid out contiguously, timed as the kernel is."""
+    from repro_torch.kernels import common, decode_attention
+
+    B, W, Hkv, D = k.shape
+    plan = decode_attention.decode_plan(B, Hkv, q.shape[2] // Hkv, D, W,
+                                        q.dtype == torch.bfloat16, q.device.index or 0)
+    flat = torch.cat([k.reshape(-1), v.reshape(-1)])
+    sink = torch.empty((), dtype=flat.dtype, device=q.device)
+    return {"host_us_per_call": host_us(torch, kern), "plan": plan,
+            "contiguous_read_ms": time_ms(torch, lambda: torch.sum(flat, 0, out=sink)),
+            "contiguous_read_bytes": flat.numel() * flat.element_size()}
 
 
 def _first_divergence(a, b):
@@ -1824,12 +1880,160 @@ def _near_bth(sel, j: int) -> bool:
     return abs(pj - pb) <= TIE_REL * abs(pb)
 
 
+def _redesign_inputs(torch):
+    """The cases the comparison mode times: lr_hvp at each of
+    HVP_CASES (mimic rows, random weights from SEED) and decode_attention at
+    RecurrentGemma-9B's and OLMo-1B's ring decode shapes. Each name maps to
+    (kernel, plain version, what to pass the kernel's C entry point)."""
+    from repro_torch.kernels import lr_hvp, ops
+    from repro_torch.models.attention import AttnSpec, ring_valid
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    Xa = torch.cat([torch.randn(N, D - 1, generator=g, device=dev),
+                    torch.ones(N, 1, device=dev)], dim=1)
+    gw = 0.8 + 0.2 * torch.rand(N, generator=g, device=dev)
+    cases = {}
+    for name, n, c in HVP_CASES:
+        w, v = (0.01 * torch.randn(c, D, generator=g, device=dev) for _ in range(2))
+        args = (w, v, Xa[:n], gw[:n], 0.05)
+        cases[name] = (lambda a=args: lr_hvp.lr_hvp(*a), lambda a=args: lr_hvp.lr_hvp_plain(*a),
+                       args)
+    for name, (B, Hkv, G, Dh, W, pos) in {
+            "decode_attention": (RG_BATCH, 1, 16, 256, RG_WINDOW, RG_DECODE_POS),
+            "decode_attention/olmo_ring": (4, 16, 1, 128, 256, 300)}.items():
+        q = torch.randn(B, 1, Hkv * G, Dh, generator=g, device=dev)
+        k, v = (torch.randn(B, W, Hkv, Dh, generator=g, device=dev) for _ in range(2))
+        spec = AttnSpec(True, W if name == "decode_attention" else 0, 0.0)
+        a = (q, k, v, ring_valid(torch.tensor(pos, device=dev), W, spec), spec)
+        cases[name] = (lambda a=a: ops.decode_attention(*a),
+                       lambda a=a: ops.decode_attention_ref(*a), a)
+    return cases
+
+
+def redesign_phase(torch, card_line: str, tree: str) -> None:
+    """One process of the comparison mode, on the repro_torch it imported
+    (this tree's or, with --src, another's): each case of _redesign_inputs
+    held against its plain version (the kernels' tolerance) and repeated
+    bit for bit, then the device time and host enqueue time of each of 20
+    calls (call_times: a slow device time beside a slow enqueue is the
+    host's) and the host cost (host_us); and lr_grad's digests at
+    tests/test_torch_gpu.py's LR_GRAD_SHAPES."""
+    import importlib.util
+
+    from repro_torch.kernels import build
+
+    build.build_all(("lr_hvp", "decode_attention", "lr_grad"))  # at once, before any timing
+    cases = _redesign_inputs(torch)
+    for name, (kern, plain, _) in cases.items():
+        out, ref = kern(), plain()
+        err = float((out - ref).abs().max())
+        limit = TOL_REL * float(ref.abs().max()) + TOL_ABS
+        if not (bool(torch.isfinite(out).all()) and err <= limit and torch.equal(out, kern())):
+            fail(f"{tree} {name}: max|kernel - plain| = {err} (limit {limit}) or no bitwise repeat")
+        device, host = call_times(torch, kern)
+        emit({"phase": "redesign", "tree": tree, "name": name, "max_abs_err": err,
+              "kernel_ms": sum(device) / len(device),
+              "kernel_ms_median": sorted(device)[len(device) // 2],
+              "kernel_ms_max": max(device), "call_ms": device, "enqueue_ms": host,
+              "host_us_per_call": host_us(torch, kern), "card": card_line})
+    # the CG solve of a round's t_select (influence_vector on backend cuda:
+    # lr_grad once, lr_hvp each iteration) at the mimic widths, host clock
+    # around each call, synchronized
+    from repro_torch.core.backend import Backend
+    from repro_torch.core.influence import influence_vector
+
+    w, _, Xa, gw, l2 = cases["lr_hvp"][2]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    Xa_val = torch.cat([torch.randn(N_VAL, D - 1, generator=g, device="cuda"),
+                        torch.ones(N_VAL, 1, device="cuda")], dim=1)
+    Y_val = torch.nn.functional.one_hot(
+        torch.randint(0, C, (N_VAL,), generator=g, device="cuda"), C).float()
+    walls = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, stats = influence_vector(w, Xa_val, Y_val, Xa, gw, l2, backend=Backend("cuda"))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    emit({"phase": "redesign_cg", "tree": tree, "cg_iters": int(stats["iters"]),
+          "wall_ms": walls, "wall_ms_median": sorted(walls)[3], "card": card_line})
+    spec = importlib.util.spec_from_file_location("gpu_tests", ROOT / "tests/test_torch_gpu.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    emit({"phase": "lr_grad_digests", "tree": tree,
+          "digests": mod._lr_grad_digests(torch.device("cuda"))})
+
+
+def compare_mode(parent: str) -> None:
+    """The redesigned kernels against the tree at `parent` (a checkout of
+    the parent commit) on this card: COMPARE_PROCS fresh processes a side in
+    turns (parent, change, change, parent, ...), each running
+    redesign_phase; then each case's times side by side (and the CG
+    solve's), and lr_grad's digests, which must be equal on both trees."""
+    import statistics
+
+    runs: dict = {}
+    order = [t for i in range(COMPARE_PROCS) for t in
+             (("parent", "change") if i % 2 == 0 else ("change", "parent"))]
+    for tree in order:
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--redesign", tree]
+        if tree == "parent":
+            cmd += ["--src", str(Path(parent).resolve() / "src")]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            fail(f"the {tree} process failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                rec = json.loads(line)
+                if rec.get("phase") in ("redesign", "redesign_cg", "lr_grad_digests"):
+                    print(line, flush=True)
+                    runs.setdefault(tree, []).append(rec)
+    summary = {}
+    for tree, recs in runs.items():
+        for rec in recs:
+            if rec["phase"] == "redesign":
+                entry = summary.setdefault(rec["name"], {}).setdefault(
+                    tree, {"ms": [], "ms_median_of_calls": [], "ms_max_of_calls": [],
+                           "host_us": []})
+                entry["ms"].append(rec["kernel_ms"])
+                entry["ms_median_of_calls"].append(rec["kernel_ms_median"])
+                entry["ms_max_of_calls"].append(rec["kernel_ms_max"])
+                entry["host_us"].append(rec["host_us_per_call"])
+    for name, trees in summary.items():
+        for entry in trees.values():
+            for key in ("ms", "ms_median_of_calls", "ms_max_of_calls", "host_us"):
+                entry[f"{key}_median"] = statistics.median(entry[key])
+    digests = {tree: [r["digests"] for r in recs if r["phase"] == "lr_grad_digests"]
+               for tree, recs in runs.items()}
+    cg = {tree: [r for r in recs if r["phase"] == "redesign_cg"] for tree, recs in runs.items()}
+    summary["influence_vector (CG)"] = {
+        tree: {"wall_ms_medians": [r["wall_ms_median"] for r in recs],
+               "cg_iters": [r["cg_iters"] for r in recs]} for tree, recs in cg.items()}
+    same = all(d == digests["parent"][0] for ds in digests.values() for d in ds)
+    emit({"phase": "compare_summary", "order": order, "cases": summary,
+          "lr_grad_digests": digests["parent"][0], "lr_grad_equal": same})
+    if not same:
+        fail(f"lr_grad's results differ between the trees: {digests}")
+
+
 def main() -> None:
+    args = sys.argv[1:]
+    if args[:1] == ["--compare"]:  # --compare PARENT_CHECKOUT
+        compare_mode(args[1])
+        print(card(), flush=True)
+        return
+    if "--src" in args:  # import repro_torch from another checkout's src
+        sys.path.insert(0, args[args.index("--src") + 1])
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the card")
     import repro_torch  # noqa: F401  (sets full-float32 matmuls)
+
+    if args[:1] == ["--redesign"]:  # --redesign TREE [--src DIR]: one comparison process
+        redesign_phase(torch, card(), args[1])
+        return
 
     card_line = card()
     emit({"phase": "start", "python": sys.version.split()[0], "torch": torch.__version__,

@@ -17,7 +17,7 @@ from repro_torch.kernels import build
 MAX_CLASSES = 16  # csrc/lr_rowcol.cuh: kMaxClasses
 COL_THREADS = 256  # csrc/lr_rowcol.cuh: kColThreads, columns per column-pass block
 BLOCKS_PER_SM = 4  # column-pass blocks the chunking aims at for each SM
-# the gathered kernels (csrc/lr_gather.cuh)
+# the many-row kernels (csrc/lr_gather.cuh): minibatch_grad, replay_correction, lr_hvp
 GATHER_THREADS = 256  # kThreads: threads of a CTA, columns of a few-rows CTA
 GATHER_CTAS_PER_SM = 2  # kCtasPerSm: many-rows CTAs an SM holds at once
 FEW_MAX_FLOATS = 40960  # kFewMaxFloats: the few-rows kernel's shared memory at most, in floats
@@ -75,17 +75,19 @@ def row_pitch(n: int) -> int:
     return (n + 3) // 4 * 4 + 4
 
 
-def gather_plan(n_rows: int, d: int, n_classes: int, n_sms: int) -> tuple[bool, int]:
-    """(few, grid) of a gathered kernel's one launch (csrc/lr_gather.cuh).
+def gather_plan(n_rows: int, d: int, n_classes: int, n_sms: int,
+                few_ok: bool = True) -> tuple[bool, int]:
+    """(few, grid) of a many-row kernel's one launch (csrc/lr_gather.cuh).
     Few rows (at most `few_slots`, their rows and w's at most FEW_MAX_FLOATS
-    in shared memory): the few-rows kernel, one CTA per block of
-    GATHER_THREADS columns, each taking every row. Otherwise the many-rows
-    kernel: a cooperative grid of at most GATHER_CTAS_PER_SM CTAs for each
-    of the card's `n_sms` SMs and one per row, each summing the rows
-    `gather_rows` gives it into its own [C, D] partial (at most
-    GATHER_SCRATCH_FLOATS in all). The plan depends on the shapes and the SM
-    count only, and so does every sum's order."""
-    if n_rows <= few_slots(n_classes) and (n_rows + n_classes) * row_pitch(d) <= FEW_MAX_FLOATS:
+    in shared memory, and `few_ok`: lr_hvp has no few-rows mode): the
+    few-rows kernel, one CTA per block of GATHER_THREADS columns, each
+    taking every row. Otherwise the many-rows kernel: a cooperative grid of
+    at most GATHER_CTAS_PER_SM CTAs for each of the card's `n_sms` SMs and
+    one per row, each summing the rows `gather_rows` gives it into its own
+    [C, D] partial (at most GATHER_SCRATCH_FLOATS in all). The plan depends
+    on the shapes and the SM count only, and so does every sum's order."""
+    if (few_ok and n_rows <= few_slots(n_classes)
+            and (n_rows + n_classes) * row_pitch(d) <= FEW_MAX_FLOATS):
         return True, -(-d // GATHER_THREADS)
     fit = max(1, GATHER_SCRATCH_FLOATS // (n_classes * d))
     return False, min(n_rows, GATHER_CTAS_PER_SM * n_sms, fit)

@@ -7,7 +7,7 @@
 extern "C" int chef_lr_grad(const float* w, const float* Xa, const float* Y, const float* gw,
                             int n, int d, int c, int chunk_rows, float l2, float* R,
                             float* partial, float* out, void* stream) {
-  return static_cast<int>(chef::launch_rowcol<chef::kGrad>(
-      Xa, d, n, c, chunk_rows, w, nullptr, Y, gw, static_cast<float>(n), l2, w, R, partial, out,
-      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(chef::launch_rowcol(Xa, d, n, c, chunk_rows, w, Y, gw,
+                                              static_cast<float>(n), l2, w, R, partial, out,
+                                              static_cast<cudaStream_t>(stream)));
 }

@@ -1,17 +1,17 @@
-// Device code of the full-batch LR-head reductions, lr_grad and lr_hvp, and
-// what the gathered ones (lr_gather.cuh) share with them. Each computes
+// Device code of the full-batch LR-head gradient, lr_grad, and what the
+// many-row reductions (lr_gather.cuh) share with it. It computes
 //
 //     out[c, d] = (1/denom) * sum_i r[i, c] * Xa[i, d] + l2 * base[c, d]
 //
-// where r[i] is a per-row residual over the C classes. The TPU kernels carry
-// the [C, D] sum in VMEM across a sequential grid; H100 blocks run in parallel
-// and in no order, so the sum is taken in three passes with no float atomics:
+// with r[i] = (softmax(x_i.w^T) - y_i) * g_i, the residual of row i over the
+// C classes. The TPU kernel carries the [C, D] sum in VMEM across a
+// sequential grid; H100 blocks run in parallel and in no order, so the sum
+// is taken in three passes with no float atomics:
 //
-//   row_pass   one warp per row: logits z = x.w^T (and u = x.v^T for the HVP)
-//              over D with lane-strided scalar loads (lane k reads columns
-//              k, k+32, ...: coalesced for any D, so an odd D = d+1 needs no
-//              padding), warp-shuffle sums, softmax in registers, residual
-//              r [C] to scratch R [n_rows, C].
+//   row_pass   one warp per row: logits z = x.w^T over D with lane-strided
+//              scalar loads (lane k reads columns k, k+32, ...: coalesced for
+//              any D, so an odd D = d+1 needs no padding), warp-shuffle sums,
+//              softmax in registers, residual r [C] to scratch R [n_rows, C].
 //   col_pass   a block owns kColThreads columns and one chunk of rows; each
 //              thread walks the chunk's rows in order and writes its partial
 //              sums to scratch [n_chunks, C, D]. The wrapper sizes the chunks
@@ -24,7 +24,9 @@
 //
 // Bound: device-memory bytes. The row and column passes each read the rows
 // once, so the kernel moves about twice the bytes of its bound (one read of
-// the rows).
+// the rows). lr_grad runs on the 579 validation rows (3 calls a round), so
+// the three launches, not the bytes, set its time; lr_hvp, which ran here
+// too, takes lr_gather.cuh's one-launch grid.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,7 +39,7 @@ constexpr int kRowWarps = 8;      // rows (one warp each) per row-pass block
 constexpr int kColThreads = 256;  // columns per column-pass block
 constexpr int kMaxClasses = 16;   // kernels/common.py: MAX_CLASSES
 
-// kGrad and kHvp run here; kGrad and kCorr in the gathered kernels (lr_gather.cuh).
+// kGrad runs here; kGrad, kHvp and kCorr in the many-row kernels (lr_gather.cuh).
 enum Residual { kGrad = 0, kHvp = 1, kCorr = 2 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -46,37 +48,31 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// kGrad: r = (p - y) * g.  kHvp: r = (p*u - p*(p.u)) * g.  p = softmax(x.w^T).
-template <int C, int MODE>
+// r = (p - y) * g, p = softmax(x.w^T).
+template <int C>
 __global__ void __launch_bounds__(kRowWarps * kWarp)
 row_pass(const float* __restrict__ Xa, int D, int n_rows, const float* __restrict__ w,
-         const float* __restrict__ v, const float* __restrict__ Y,
-         const float* __restrict__ gw, float* __restrict__ R) {
+         const float* __restrict__ Y, const float* __restrict__ gw, float* __restrict__ R) {
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kRowWarps + threadIdx.x / kWarp;
   if (row >= n_rows) return;
   const int64_t src = row;
   const float* x = Xa + src * D;
-  float z[C], u[C];
+  float z[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    z[c] = 0.f;
-    u[c] = 0.f;
-  }
+  for (int c = 0; c < C; ++c) z[c] = 0.f;
 #pragma unroll 4
   for (int d = lane; d < D; d += kWarp) {
     const float xv = x[d];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       z[c] = fmaf(xv, w[c * D + d], z[c]);
-      if (MODE == kHvp) u[c] = fmaf(xv, v[c * D + d], u[c]);
     }
   }
   float m = -INFINITY;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     z[c] = warp_sum(z[c]);
-    if (MODE == kHvp) u[c] = warp_sum(u[c]);
     m = fmaxf(m, z[c]);
   }
   float s = 0.f;
@@ -85,23 +81,13 @@ row_pass(const float* __restrict__ Xa, int D, int n_rows, const float* __restric
     z[c] = expf(z[c] - m);
     s += z[c];
   }
-  float pu = 0.f;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    z[c] = z[c] / s;  // z now holds p
-    pu += z[c] * u[c];
-  }
+  for (int c = 0; c < C; ++c) z[c] = z[c] / s;  // z now holds p
   const float g = gw[src];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     if (lane != c) continue;
-    float r;
-    if (MODE == kGrad) {
-      r = (z[c] - Y[src * C + c]) * g;
-    } else {
-      r = (z[c] * u[c] - z[c] * pu) * g;
-    }
-    R[(int64_t)row * C + c] = r;
+    R[(int64_t)row * C + c] = (z[c] - Y[src * C + c]) * g;
   }
 }
 
@@ -139,13 +125,12 @@ __global__ void chunk_sum(const float* __restrict__ partial, int n_chunks, int C
   out[j] = base ? s / denom + l2 * base[j] : s / denom;
 }
 
-template <int C, int MODE>
+template <int C>
 void launch_passes(const float* Xa, int D, int n_rows, int chunk_rows, const float* w,
-                   const float* v, const float* Y, const float* gw, float* R, float* partial,
-                   cudaStream_t st) {
+                   const float* Y, const float* gw, float* R, float* partial, cudaStream_t st) {
   const dim3 rgrid((n_rows + kRowWarps - 1) / kRowWarps);
   const dim3 cgrid((D + kColThreads - 1) / kColThreads, (n_rows + chunk_rows - 1) / chunk_rows);
-  row_pass<C, MODE><<<rgrid, kRowWarps * kWarp, 0, st>>>(Xa, D, n_rows, w, v, Y, gw, R);
+  row_pass<C><<<rgrid, kRowWarps * kWarp, 0, st>>>(Xa, D, n_rows, w, Y, gw, R);
   col_pass<C><<<cgrid, kColThreads, 0, st>>>(Xa, D, n_rows, chunk_rows, R, partial);
 }
 
@@ -154,18 +139,17 @@ void launch_passes(const float* Xa, int D, int n_rows, int chunk_rows, const flo
 // from the shapes and the card's SM count (kernels/common.py: chunk_rows).
 // base == nullptr drops the l2 term. Returns cudaGetLastError() after the
 // last launch.
-template <int MODE>
-cudaError_t launch_rowcol(const float* Xa, int D, int n_rows, int C, int chunk_rows,
-                          const float* w, const float* v, const float* Y, const float* gw,
-                          float denom, float l2, const float* base, float* R, float* partial,
-                          float* out, cudaStream_t st) {
+inline cudaError_t launch_rowcol(const float* Xa, int D, int n_rows, int C, int chunk_rows,
+                                 const float* w, const float* Y, const float* gw, float denom,
+                                 float l2, const float* base, float* R, float* partial,
+                                 float* out, cudaStream_t st) {
   if (n_rows < 1 || D < 1 || chunk_rows < 1) return cudaErrorInvalidValue;
   const int n_chunks = (n_rows + chunk_rows - 1) / chunk_rows;
   if (n_chunks > 65535) return cudaErrorInvalidValue;  // grid y limit
   switch (C) {
-#define CHEF_CASE(K)                                                                      \
-  case K:                                                                                 \
-    launch_passes<K, MODE>(Xa, D, n_rows, chunk_rows, w, v, Y, gw, R, partial, st); \
+#define CHEF_CASE(K)                                                         \
+  case K:                                                                    \
+    launch_passes<K>(Xa, D, n_rows, chunk_rows, w, Y, gw, R, partial, st); \
     break;
     CHEF_CASE(1) CHEF_CASE(2) CHEF_CASE(3) CHEF_CASE(4) CHEF_CASE(5) CHEF_CASE(6)
     CHEF_CASE(7) CHEF_CASE(8) CHEF_CASE(9) CHEF_CASE(10) CHEF_CASE(11) CHEF_CASE(12)

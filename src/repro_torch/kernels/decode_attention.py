@@ -11,12 +11,14 @@ Replaces the TPU kernel
 `repro/kernels/decode_attention.py::decode_attention_pallas`, whose grid is
 (B, Hkv) with the whole ring of a head in one cell. That grid would be 2
 CTAs on 132 SMs at RecurrentGemma-9B's decode shape (B 2, one kv head), so
-the CUDA kernel (`csrc/decode_attention.cu`) splits the ring into chunks of
-`CHUNK` slots, one CTA a (chunk, kv head, batch) cell writing a partial
-softmax (m, l, acc), and merges the chunks in a second kernel of the same
-call, in a fixed order with no atomics: the result repeats bit for bit. It
-reads the ring through its strides, so the cache is never transposed. Bound
-on the H100: device-memory bytes, one read of the ring's K and V.
+the CUDA kernel (`csrc/decode_attention.cu`) cuts each cell's ring into
+chunks (`decode_plan`, from the kernel's own plan: the chunk from the
+shapes and the SM count, so that the chunks fill the card), computes each
+chunk's partial softmax (m, l, acc) with every thread busy, and merges the
+chunks after a grid barrier of the same cooperative launch: one launch a call, in a fixed order with no
+atomics, so the result repeats bit for bit. It reads the ring through its
+strides, so the cache is never transposed. Bound on the H100:
+device-memory bytes, one read of the ring's K and V.
 
 The plain version, `decode_attention_reference`, is the JAX package's
 `_decode_cell` arithmetic over every (b, kv head) at once (one softmax over
@@ -25,16 +27,36 @@ rounding.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from repro_torch.kernels import build, common
 
 NEG_INF = -1e30
-CHUNK = 32  # ring slots a CTA reads: csrc/decode_attention.cu kDecodeChunk
-MAX_SMEM = 232_448  # the H100's opt-in shared memory a block can use
 
-_ARGTYPES = ([common.PTR] * 5 + [common.INT] * 6 + [common.INT64] * 6 + [common.FLOAT] * 3
+_ARGTYPES = ([common.PTR] * 5 + [common.INT] * 8 + [common.INT64] * 6 + [common.FLOAT] * 3
              + [common.PTR] * 3 + [common.INT, common.PTR])
+_PLAN_ARGTYPES = [common.INT] * 6 + [common.PTR]
+
+
+@functools.lru_cache(maxsize=256)  # a pure function of its arguments, asked every decode step
+def decode_plan(B: int, Hkv: int, G: int, D: int, W: int, bf16: bool, device: int) -> dict:
+    """The kernel's launch at these shapes on CUDA device `device`, as
+    `csrc/decode_attention.cu` plans it from the shapes, the SM count and
+    the occupancy calculator: `chunk` slots of a work item, `n_split` chunks
+    a (sequence, kv head) cell, the cooperative `grid`, and the floats of
+    the partials' scratch. Raises where the kernel does not take the
+    shapes."""
+    fn = build.entry("decode_attention", "chef_decode_plan", _PLAN_ARGTYPES)
+    plan = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(device):
+        err = fn(B, Hkv, G, D, W, int(bf16), plan)
+    if err != 0:
+        raise ValueError(f"decode_attention: no launch for B {B}, Hkv {Hkv}, G {G}, D {D}, "
+                         f"W {W}: {build.error_string('decode_attention', err)}")
+    return dict(zip(("chunk", "n_split", "grid", "scratch"), plan))
 
 
 def decode_attention_reference(q, k, v, valid, *, softcap: float = 0.0,
@@ -64,10 +86,6 @@ def decode_attention(q, k, v, valid, *, softcap: float = 0.0) -> torch.Tensor:
         return decode_attention_reference(q, k, v, valid, softcap=softcap)
     B, Hkv, G, D = q.shape
     W = k.shape[1]
-    smem = 4 * (G * D + 2 * CHUNK * D + G * CHUNK) + CHUNK
-    if smem > MAX_SMEM:
-        raise ValueError(f"decode_attention: G {G} x D {D} needs {smem} B of shared memory, "
-                         f"more than the {MAX_SMEM} B a block can use")
     device = common.check_attention(
         "decode_attention", q=(q, (B, Hkv, G, D), "float", True),
         k=(k, (B, W, Hkv, D), "float", False), v=(v, (B, W, Hkv, D), "float", False))
@@ -75,15 +93,19 @@ def decode_attention(q, k, v, valid, *, softcap: float = 0.0) -> torch.Tensor:
         raise ValueError(f"decode_attention: valid must be a bool tensor of shape ({W},) on "
                          f"{device}, got {valid.dtype} {tuple(valid.shape)} on {valid.device}")
     valid = valid.contiguous()
-    n_split = -(-W // CHUNK)
-    m = torch.empty(B, Hkv, n_split, G, device=device)
-    l = torch.empty_like(m)
-    acc = torch.empty(B, Hkv, n_split, G, D, device=device)
+    plan = decode_plan(B, Hkv, G, D, W, q.dtype == torch.bfloat16, device.index)
+    n_split = plan["n_split"]
+    # the partials in one float32 scratch: m, l [B, Hkv, n_split, G], then acc
+    # [B, Hkv, n_split, G, D]
+    rows = B * Hkv * n_split * G
+    scratch = torch.empty(plan["scratch"], device=device)
+    m_ptr = scratch.data_ptr()
     out = torch.empty_like(q)
     fn = build.entry("decode_attention", "chef_decode_attention", _ARGTYPES)
     common.launch("decode_attention", fn, device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  valid.data_ptr(), out.data_ptr(), B, Hkv, G, D, W, n_split,
-                  k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-                  float(softcap), 1.0 / softcap if softcap else 0.0, D**-0.5, m.data_ptr(),
-                  l.data_ptr(), acc.data_ptr(), int(q.dtype == torch.bfloat16))
+                  valid.data_ptr(), out.data_ptr(), B, Hkv, G, D, W, plan["chunk"], n_split,
+                  plan["grid"], k.stride(0), k.stride(1), k.stride(2), v.stride(0),
+                  v.stride(1), v.stride(2),
+                  float(softcap), 1.0 / softcap if softcap else 0.0, D**-0.5, m_ptr,
+                  m_ptr + 4 * rows, m_ptr + 8 * rows, int(q.dtype == torch.bfloat16))
     return out

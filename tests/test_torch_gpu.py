@@ -11,6 +11,7 @@ Tolerance: max|kernel - plain| <= 1e-4 * max|plain| + 1e-6 (float32, sums in
 another order than the plain version's).
 """
 import dataclasses
+import hashlib
 
 import numpy as np
 import pytest
@@ -83,13 +84,23 @@ GATHER_SHAPES = [(4099, 2049, 2, 100), (4099, 2049, 2, (1, 0)), (4099, 2049, 2, 
                  (67, 2305, 3, 40)]
 
 
+# lr_hvp on the many-rows grid (csrc/lr_gather.cuh, kHvp): C 1, 2, 3, 5 and
+# 16; one row and fewer rows than the grid; D not a multiple of 4; D within
+# a thread's register blocks (rows_staged: 9 at C 1-2, 6 at C 3, 1 at C 16),
+# past them (rows_wide: 8 rows at once at D 2049 and 2305, 6 at D 3001) and
+# past rows_wide's shared memory (rows_streamed)
+HVP_SHAPES = [(1, 2049, 2), (100, 2049, 1), (4099, 2305, 2), (1001, 1535, 3), (4099, 2049, 3),
+              (300, 255, 16), (4099, 2049, 16), (200, 3001, 5), (67, 20500, 3)]
+
+
 @pytest.mark.parametrize("op,n,d,c,bs", [
     pytest.param(op, *shape, id=f"{'-'.join(map(str, shape))}-{op}")
     for op in sorted(CASES) for shape in [(67, 33, 2, 23), (67, 33, 3, 23), (1, 1, 1, 1),
                                           (515, 257, 16, 300), (4099, 2049, 2, 2000)]] + [
     pytest.param("minibatch_grad", n, d, c, bs,
                  id=f"{n}-{d}-{c}-{_spec_id(bs)}-minibatch_grad")
-    for n, d, c, bs in GATHER_SHAPES])
+    for n, d, c, bs in GATHER_SHAPES] + [
+    pytest.param("lr_hvp", n, d, c, 1, id=f"{n}-{d}-{c}-lr_hvp") for n, d, c in HVP_SHAPES])
 def test_kernel_matches_plain(op, n, d, c, bs):
     """Kernel == plain version within the tolerance, repeats bit for bit, and
     counts one launch per call."""
@@ -105,6 +116,44 @@ def test_kernel_matches_plain(op, n, d, c, bs):
     assert err <= TOL_REL * float(ref.abs().max()) + TOL_ABS
     assert torch.equal(kern(t), out)
     assert LAUNCHES[op] == before + 2
+
+
+# lr_grad at the kernel phase's shapes (chip_smoke.py: the 579 validation
+# rows at D 2049) and three more: its results are those of the three-pass
+# code before lr_hvp left it, bit for bit (sha256 of the output's bytes, from
+# the tree before that change, on an H100 of 132 SMs: the chunking depends
+# on the SM count)
+LR_GRAD_SHAPES = [(579, 2049, 2), (579, 2049, 16), (4099, 2049, 2), (67, 33, 3)]
+LR_GRAD_DIGESTS = {132: {"579-2049-2": "a31b2bcfa79ce7f3", "579-2049-16": "8f29a26b7c704022",
+                         "4099-2049-2": "7707db82fa01bb12", "67-33-3": "b5a93717b53b35cd"}}
+
+
+def _lr_grad_digests(dev) -> dict:
+    """sha256 (16 hex digits) of lr_grad's output at each of LR_GRAD_SHAPES,
+    on inputs made with numpy from a fixed seed."""
+    out = {}
+    for n, d, c in LR_GRAD_SHAPES:
+        r = np.random.default_rng(7)
+        Xa = r.standard_normal((n, d)).astype(np.float32)
+        Xa[:, -1] = 1.0
+        z = r.standard_normal((n, c))
+        Y = np.exp(z) / np.exp(z).sum(-1, keepdims=True)
+        t = {k: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev) for k, x in dict(
+            Xa=Xa, w=0.01 * r.standard_normal((c, d)), Y=Y, gw=r.uniform(0.5, 1.0, n)).items()}
+        res = lr_grad.lr_grad(t["w"], t["Xa"], t["Y"], t["gw"], 0.05)
+        out[f"{n}-{d}-{c}"] = hashlib.sha256(res.cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+def test_lr_grad_keeps_its_results():
+    """lr_grad's results at LR_GRAD_SHAPES equal, bit for bit, those the
+    kernel gave before lr_rowcol.cuh lost its HVP mode."""
+    dev = _card()
+    want = LR_GRAD_DIGESTS.get(common.n_sms(dev))
+    if want is None:
+        pytest.skip(f"digests recorded for {sorted(LR_GRAD_DIGESTS)} SMs, this card has "
+                    f"{common.n_sms(dev)}")
+    assert _lr_grad_digests(dev) == want
 
 
 def test_kernel_path_raises_on_what_it_does_not_take():
@@ -620,21 +669,57 @@ def _windowed_engine(dev):
         assert launches["paged_attention"] == cfg.n_layers * stats["decode_rounds"]
 
 
-# B, Hkv, G, D, W, decode position, window, softcap, dtype
+# B, Hkv, G, D, W, decode position, window, softcap, dtype, K rows 16-byte
+# aligned (else K is a view one element into a wider row: rows 4-byte
+# aligned in float32, 2-byte in bf16)
 DECODE_CASES = [
-    (2, 1, 16, 256, 2048, 3030, 2048, 0.0, torch.float32),  # recurrentgemma-9b, ring wrapped
-    (4, 16, 1, 128, 256, 100, 0, 0.0, torch.float32),  # olmo-1b on a ring, not full yet
-    (3, 2, 4, 64, 80, 201, 50, 30.0, torch.float32),  # a ragged last chunk, softcap
-    (2, 2, 8, 128, 96, 140, 0, 0.0, torch.bfloat16),
+    (2, 1, 16, 256, 2048, 3030, 2048, 0.0, torch.float32, True),  # recurrentgemma-9b, wrapped
+    (4, 16, 1, 128, 256, 100, 0, 0.0, torch.float32, True),  # olmo-1b on a ring, not full yet
+    (3, 2, 4, 64, 80, 201, 50, 30.0, torch.float32, True),  # a ragged last chunk, softcap
+    (2, 2, 8, 128, 96, 140, 0, 0.0, torch.bfloat16, True),
+    (2, 1, 16, 256, 1000, 1500, 0, 0.0, torch.float32, True),  # W not a multiple of the chunk
+    (3, 2, 1, 128, 333, 400, 0, 0.0, torch.float32, False),  # G 1, ragged, unaligned rows
+    (2, 2, 16, 128, 200, 250, 100, 30.0, torch.bfloat16, False),  # bf16 with softcap, unaligned
+    (64, 8, 4, 128, 512, 600, 0, 0.0, torch.float32, True),  # more chunks than the grid holds
 ]
+
+
+# B, Hkv, G, D, W, bf16: RecurrentGemma-9B's ring decode, OLMo-1B's ring
+# (bf16), a ragged ring of 100, and a batch whose chunks outnumber what the
+# card holds at once (D 512)
+@pytest.mark.parametrize("B,Hkv,G,D,W,bf16", [(2, 1, 16, 256, 2048, False),
+                                              (4, 16, 1, 128, 256, True),
+                                              (3, 2, 4, 64, 100, False),
+                                              (64, 16, 16, 512, 8192, False)])
+def test_decode_plan_covers_the_ring_and_fits_a_cooperative_grid(B, Hkv, G, D, W, bf16):
+    """The decode kernel's plan (csrc/decode_attention.cu) takes every ring
+    slot of a cell exactly once, in chunks of at most 128 slots, a multiple
+    of 8; it repeats; the grid is at least one CTA and at most one a work
+    item and two an SM; the scratch holds m, l and acc of every item."""
+    from repro_torch.kernels import decode_attention
+
+    dev = _card()
+    plan = decode_attention.decode_plan(B, Hkv, G, D, W, bf16, dev.index or 0)
+    decode_attention.decode_plan.cache_clear()
+    assert plan == decode_attention.decode_plan(B, Hkv, G, D, W, bf16, dev.index or 0)
+    chunk, n_split = plan["chunk"], plan["n_split"]
+    assert chunk % 8 == 0 and 8 <= chunk <= 128
+    slots = [t for c in range(n_split) for t in range(c * chunk, min(W, (c + 1) * chunk))]
+    assert slots == list(range(W)) and (n_split - 1) * chunk < W
+    items = B * Hkv * n_split
+    assert 1 <= plan["grid"] <= min(items, 2 * common.n_sms(dev))
+    assert plan["scratch"] == items * G * (D + 2)
+    if B * Hkv * -(-W // 128) <= common.n_sms(dev):  # room to split: the chunks fill the card
+        assert items >= min(common.n_sms(dev), B * Hkv * -(-W // 32)) // 2
 
 
 def test_decode_attention_kernel_matches_plain():
     """The ring decode kernel against its plain version at each of
     DECODE_CASES (valid from ring_valid at the case's position): within the
     tolerance (bf16 outputs 2^-7), bit for bit on a repeat, one launch a
-    call, the ring read through a strided view of a wider tensor, zeros when
-    no slot is valid; bad input raises. Then the banded kernel at
+    call, the ring read through a strided view of a wider tensor (with rows
+    not 16-byte aligned in two cases), zeros when no slot is valid; bad
+    input raises. Then the banded kernel at
     RecurrentGemma-9B's head shape (16 query heads over 1 kv head of 256,
     the DMAX 256 instance) against its plain version and bit for bit
     flash."""
@@ -643,10 +728,14 @@ def test_decode_attention_kernel_matches_plain():
 
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(2)
-    for B, Hkv, G, D, W, pos, window, softcap, dtype in DECODE_CASES:
+    for B, Hkv, G, D, W, pos, window, softcap, dtype, aligned in DECODE_CASES:
         q = torch.randn(B, 1, Hkv * G, D, generator=g, device=dev).to(dtype)
-        wide = torch.randn(B, W, Hkv + 1, D, generator=g, device=dev).to(dtype)
-        k = wide[:, :, 1:]  # a strided view: the kernel reads through strides
+        # a strided view: the kernel reads through strides; unaligned, each
+        # row starts one element into a wider row, so most rows are not
+        # 16-byte aligned
+        wide = torch.randn(B, W, Hkv + 1, D + (not aligned), generator=g, device=dev).to(dtype)
+        k = wide[:, :, 1:, 1 - aligned:]
+        assert (k.data_ptr() % 16 == 0) == aligned
         v = torch.randn(B, W, Hkv, D, generator=g, device=dev).to(dtype)
         spec = AttnSpec(True, window, softcap)
         valid = ring_valid(torch.tensor(pos, device=dev), W, spec)

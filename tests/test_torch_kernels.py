@@ -4,8 +4,11 @@ Each kernel module of `repro_torch.kernels` holds a plain PyTorch version of
 its kernel; its wrapper computes that version for CPU tensors. Both are held
 against `repro`'s `Backend("reference")` and `Backend("pallas")` (Pallas in
 interpret mode) on the same numpy inputs: odd N = 67, D = 33, C in {2, 3};
-float32, rtol 1e-5, atol 1e-6. The kernels themselves run only on the card:
-tests/test_torch_gpu.py holds them against these plain versions there.
+float32, rtol 1e-5, atol 1e-6. The ring decode's plain version is held
+against `repro.kernels.ops.decode_attention_ref` at the kinds of the
+card-only decode cases (bf16 outputs within 2^-7 of the largest). The
+kernels themselves run only on the card: tests/test_torch_gpu.py holds them
+against these plain versions there.
 """
 import re
 
@@ -16,8 +19,11 @@ import pytest
 import torch
 
 from repro.core.backend import Backend as JBackend
+from repro.kernels import ops as j_ops
+from repro.models import attention as j_attn
 from repro_torch.kernels import (LAUNCHES, build, common, infl_scores, lr_grad, lr_hvp,
-                                 minibatch_grad, replay_correction)
+                                 minibatch_grad, ops, replay_correction)
+from repro_torch.models.attention import AttnSpec, ring_valid
 
 RTOL, ATOL = 1e-5, 1e-6
 N, D, BS = 67, 33, 23
@@ -171,6 +177,45 @@ def test_chunking_covers_rows_and_fills_the_card(n_rows, d, sms):
         assert grid * c * d <= max(common.GATHER_SCRATCH_FLOATS, c * d)
         taken = [i for b in range(grid) for i in range(*common.gather_rows(b, grid, n_rows))]
         assert taken == list(range(n_rows))
+        # lr_hvp: always the many-rows grid, even where few rows would fit
+        assert common.gather_plan(n_rows, d, c, sms, few_ok=False) == (
+            False, min(n_rows, common.GATHER_CTAS_PER_SM * sms,
+                       max(1, common.GATHER_SCRATCH_FLOATS // (c * d))))
+
+
+# B, Hkv, G, D, W, ring position, window, softcap, dtype, K and V a view one
+# element into wider rows (rows not 16-byte aligned): the kinds of the
+# card-only DECODE_CASES at CPU widths
+@pytest.mark.parametrize("B,Hkv,G,D,W,pos,window,softcap,dtype,shifted", [
+    (2, 1, 16, 64, 48, 70, 48, 0.0, torch.float32, False),  # RecurrentGemma's grouping, wrapped
+    (3, 2, 1, 32, 37, 50, 0, 0.0, torch.float32, True),  # G 1, W not a multiple of 8
+    (2, 2, 16, 32, 40, 45, 20, 30.0, torch.bfloat16, True),  # bf16 with softcap and a window
+    (2, 2, 4, 16, 24, 10, 0, 0.0, torch.float32, False),  # a ring not full yet
+])
+def test_decode_attention_plain_matches_jax(B, Hkv, G, D, W, pos, window, softcap, dtype,
+                                            shifted):
+    """The ring decode's plain version (and the wrapper, which computes it
+    for CPU tensors, with no launch) against the JAX package's reference on
+    the same inputs."""
+    r = np.random.default_rng(W)
+    q = r.standard_normal((B, 1, Hkv * G, D)).astype(np.float32)
+    k, v = (r.standard_normal((B, W, Hkv, D + shifted)).astype(np.float32) for _ in range(2))
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    spec, jspec = AttnSpec(True, window, softcap), j_attn.AttnSpec(True, window, softcap)
+    valid = ring_valid(torch.tensor(pos), W, spec)
+    want = np.asarray(j_ops.decode_attention_ref(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k[..., shifted:], v[..., shifted:])),
+        jnp.asarray(valid.numpy()), jspec).astype(jnp.float32))
+    qt, kt, vt = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    kt, vt = kt[..., shifted:], vt[..., shifted:]  # views with a last stride of 1
+    before = dict(LAUNCHES)
+    got = ops.decode_attention_ref(qt, kt, vt, valid, spec)
+    assert torch.equal(ops.decode_attention(qt, kt, vt, valid, spec), got)
+    assert LAUNCHES == before and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert np.abs(got.float().numpy() - want).max() <= 2**-7 * np.abs(want).max()
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=2e-6)
 
 
 def test_build_command_and_hash(monkeypatch):
