@@ -29,7 +29,12 @@ ring serving path and the int8 page pools.
    outputs: 2^-7 * max|plain|); paged_attention at batch 4 over 32 table
    pages of 8 with a parked slot, and at G = 4 with a window. The flash
    cases also time one F.scaled_dot_product_attention call (float32, the
-   same boolean mask) as the library yardstick.
+   same boolean mask) as the library yardstick. Each paged case (here and
+   in 3b, 3c, float32 and int8) also reports its host cost a call, its
+   launch plan, as a yardstick one torch.sum over its live K/V bytes laid
+   out contiguously, the kernel and the yardstick after a clean L2 flush
+   (read, not written), and the time of the merge that follows it
+   (ops.paged_decode_finish).
 3b. The same for the sliding-window kernels at StarCoder2-3B's attention
    shapes (24 query heads over 2 kv heads of 128, window 4096):
    local_attention at an 8192-token prefill and a tail, chunked_prefill's
@@ -110,14 +115,16 @@ ring serving path and the int8 page pools.
 Any failure exits non-zero. Needs a CUDA device; imports nothing of JAX or of
 the JAX package.
 
-A second mode, on one card, measures the redesigned lr_hvp and
-decode_attention against the parent commit:
+A second mode, on one card, measures the redesigned kernels (lr_hvp,
+decode_attention, the float32 and int8 paged partials) against the parent
+commit:
 
     python3 chip_smoke.py --compare PARENT   # PARENT: a checkout of the parent commit
 
 It runs both trees' kernels (and the CG solve) at the same cases in fresh
-processes in turns, with each call's device time and host enqueue time, and
-checks that lr_grad's results are equal on both.
+processes in turns, with each call's device time and host enqueue time and
+the host cost a call (the mean of 200 calls, and the least of 10 batches
+of 20), and checks that lr_grad's results are equal on both.
 """
 from __future__ import annotations
 
@@ -231,19 +238,24 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def call_times(torch, fn, reps: int = 20) -> tuple[list, list]:
+def call_times(torch, fn, reps: int = 20, clean: bool = False) -> tuple[list, list]:
     """Device time of each of `reps` calls of fn() in ms, by CUDA events,
     and the host's time to enqueue each (the two events and the call). Before
-    each call L2 (50 MB) is flushed, as the loop finds its inputs there, and
-    the stream is held by a sleep (about 1 ms) so that the host's launch
-    time is not counted unless enqueueing outlasts the sleep."""
+    each call L2 (50 MB) is flushed, as the loop finds its inputs there: by
+    writing 128 MB, which leaves up to 50 MB of dirty lines in L2, each
+    written back when the call's own reads or writes take its place; or,
+    with `clean`, by reading them, which leaves clean lines. The stream is
+    held by a sleep (about 1 ms) so that the host's launch time is not
+    counted unless enqueueing outlasts the sleep."""
     flush = torch.empty(32 * 2**20, device="cuda")
+    sink = torch.empty((), device="cuda")
+    wipe = (lambda: torch.sum(flush, 0, out=sink)) if clean else flush.zero_
     for _ in range(3):
         fn()
     device, host = [], []
     for _ in range(reps):
         torch.cuda._sleep(2_000_000)
-        flush.zero_()
+        wipe()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -256,9 +268,9 @@ def call_times(torch, fn, reps: int = 20) -> tuple[list, list]:
     return device, host
 
 
-def time_ms(torch, fn, reps: int = 20) -> float:
+def time_ms(torch, fn, reps: int = 20, clean: bool = False) -> float:
     """Mean device time of fn() in ms (call_times)."""
-    return sum(call_times(torch, fn, reps)[0]) / reps
+    return sum(call_times(torch, fn, reps, clean)[0]) / reps
 
 
 def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
@@ -273,6 +285,12 @@ def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
     seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
     return seconds / calls * 1e6
+
+
+def host_us_min(torch, fn, batches: int = 10) -> float:
+    """The least of `batches` host_us figures of HOST_CALLS / batches calls
+    each: a host cost less shaken by the other work on the host's cores."""
+    return min(host_us(torch, fn, HOST_CALLS // batches) for _ in range(batches))
 
 
 def bound(bytes_moved: float, ops: float,
@@ -915,30 +933,83 @@ def attention_kernel_phase(torch, card_line: str) -> dict:
         q = torch.randn(B, Hkv, G, D, generator=g, device=dev)
         k_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev)
         v_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev)
-        ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
-        table = torch.zeros(B, n_table, dtype=torch.int32, device=dev)
-        pos = torch.zeros(B, dtype=torch.int32, device=dev)
-        # three live slots at positions 217, 100 and 37 with their whole
-        # 32-page allocation; the last slot parked (all trash, position 0)
-        for b, p in enumerate((217, 100, 37)):
-            table[b] = ids[b * n_table:(b + 1) * n_table]
-            pos[b] = p
-        kpos0 = torch.arange(n_table, device=dev) * P  # first position of each page
-        live = (table != 0) & (kpos0[None] <= pos[:, None])
-        if window:
-            live &= kpos0[None] + P - 1 > pos[:, None] - window
-        n_live = float(live.sum())
+        table, pos = _olmo_decode_table(torch, g, dev, n_table, n_phys)
+        n_live = float(_live_pages(torch, table, pos, P, window).sum())
         nbytes = (4.0 * (B * Hkv * G * D + 2 * n_live * P * Hkv * D + B * n_table + B)
                   + 4.0 * B * Hkv * n_table * G * (D + 2))
         ops_n = 4.0 * G * D * P * n_live * Hkv
-        kw = dict(window=window)
         a = (q, k_pages, v_pages, table, pos)
+        kern = lambda a=a, w=window: paged_attention.paged_attention_partials(  # noqa: E731
+            *a, window=w)
         results[name] = _check_and_time(
-            torch, name, lambda a=a: paged_attention.paged_attention_partials(*a, **kw),
-            lambda a=a: paged_attention.paged_attention_partials_reference(*a, **kw), None,
-            [B, Hkv, G, D, P, n_table, n_phys, window], nbytes, ops_n, FP32_OPS_PER_S,
+            torch, name, kern,
+            lambda a=a, w=window: paged_attention.paged_attention_partials_reference(*a, window=w),
+            None, [B, Hkv, G, D, P, n_table, n_phys, window], nbytes, ops_n, FP32_OPS_PER_S,
             card_line, pairs=lambda out, ref, name=name: _partial_pairs(torch, name, out, ref))
+        emit({"phase": "kernel_extra", "name": name, **_paged_extra(torch, kern, *a, window)})
     return results
+
+
+def _olmo_decode_table(torch, g, dev, n_table: int, n_phys: int):
+    """OLMo-1B's decode table at batch 4: slots at positions 217, 100 and 37
+    with their whole n_table-page allocation (most of it past the
+    position), the last slot parked (all trash, position 0)."""
+    ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
+    table = torch.zeros(4, n_table, dtype=torch.int32, device=dev)
+    pos = torch.zeros(4, dtype=torch.int32, device=dev)
+    for b, p in enumerate((217, 100, 37)):
+        table[b] = ids[b * n_table:(b + 1) * n_table]
+        pos[b] = p
+    return table, pos
+
+
+def _starcoder_decode_table(torch, g, dev, n_table: int, n_phys: int, window: int):
+    """StarCoder2-3B's decode table: two slots SC_MAX_NEW - 1 tokens into
+    prompts of SC_LENGTHS[:2], the whole pages past the window retired."""
+    ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
+    table = torch.zeros(2, n_table, dtype=torch.int32, device=dev)
+    pos = torch.tensor([SC_LENGTHS[0] + SC_MAX_NEW - 1, SC_LENGTHS[1] + SC_MAX_NEW - 1],
+                       dtype=torch.int32, device=dev)
+    for b in range(2):
+        need = -(-(SC_LENGTHS[b] + SC_MAX_NEW) // SC_PAGE)
+        table[b, :need] = ids[b * n_table:b * n_table + need]
+        table[b, :(int(pos[b]) - window) // SC_PAGE] = 0  # retired
+    return table, pos
+
+
+def _live_pages(torch, table, pos, P: int, window: int):
+    """[B, n_table]: the table pages with a visible key."""
+    first = torch.arange(table.shape[1], device=table.device) * P  # each page's first position
+    live = (table != 0) & (first[None] <= pos[:, None])
+    if window:
+        live &= first[None] + P - 1 > pos[:, None] - window
+    return live
+
+
+def _paged_extra(torch, kern, q, k_pages, v_pages, table, pos, window: int) -> dict:
+    """Beside a paged case: the host's cost of a call, the launch plan (query
+    rows a warp, warps a CTA, keys a transpose reduction, shared memory), a
+    yardstick (one torch.sum over the live pages' K and V bytes laid out
+    contiguously, as float32, timed as the kernel is), the kernel and the
+    yardstick after a clean flush (call_times), and the time of the merge,
+    ops.paged_decode_finish, on the kernel's partials."""
+    from repro_torch.kernels import ops, paged_attention
+
+    B, Hkv, G, D = q.shape
+    P = k_pages.shape[1]
+    ids = table[_live_pages(torch, table, pos, P, window)].long()
+    flat = torch.cat([k_pages[ids].reshape(-1), v_pages[ids].reshape(-1)]).view(torch.float32)
+    sink = torch.empty((), device=q.device)
+    read = lambda: torch.sum(flat, 0, out=sink)  # noqa: E731
+    m, l, acc = kern()
+    q4 = q.reshape(B, 1, Hkv * G, D)
+    return {"host_us_per_call": host_us(torch, kern),
+            "plan": paged_attention.paged_plan(G, D, P, k_pages.element_size()),
+            "contiguous_read_ms": time_ms(torch, read),
+            "contiguous_read_bytes": flat.numel() * flat.element_size(),
+            "kernel_ms_clean_l2": time_ms(torch, kern, clean=True),
+            "contiguous_read_ms_clean_l2": time_ms(torch, read, clean=True),
+            "merge_ms": time_ms(torch, lambda: ops.paged_decode_finish(m, l, acc, q4))}
 
 
 def _partial_pairs(torch, name, out, ref):
@@ -1038,28 +1109,21 @@ def windowed_kernel_phase(torch, card_line: str) -> dict:
     q = torch.randn(2, Hkv, Hq // Hkv, D, generator=g, device=dev)
     k_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev)
     v_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev)
-    ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
-    table = torch.zeros(2, n_table, dtype=torch.int32, device=dev)
-    pos = torch.tensor([SC_LENGTHS[0] + SC_MAX_NEW - 1, SC_LENGTHS[1] + SC_MAX_NEW - 1],
-                       dtype=torch.int32, device=dev)
-    for b in range(2):
-        need = -(-(SC_LENGTHS[b] + SC_MAX_NEW) // P)
-        table[b, :need] = ids[b * n_table:b * n_table + need]
-        table[b, :(int(pos[b]) - W) // P] = 0  # retired
-    kpos0 = torch.arange(n_table, device=dev) * P
-    live = (table != 0) & (kpos0[None] <= pos[:, None]) & (kpos0[None] + P - 1 > pos[:, None] - W)
-    n_live = float(live.sum())
+    table, pos = _starcoder_decode_table(torch, g, dev, n_table, n_phys, W)
+    n_live = float(_live_pages(torch, table, pos, P, W).sum())
     G = Hq // Hkv
     a = (q, k_pages, v_pages, table, pos)
+    kern = lambda: paged_attention.paged_attention_partials(*a, window=W)  # noqa: E731
     results["paged_attention/starcoder2"] = _check_and_time(
-        torch, "paged_attention/starcoder2",
-        lambda: paged_attention.paged_attention_partials(*a, window=W),
+        torch, "paged_attention/starcoder2", kern,
         lambda: paged_attention.paged_attention_partials_reference(*a, window=W), None,
         [2, Hkv, G, D, P, n_table, n_phys, W],
         4.0 * (q.numel() + 2 * n_live * P * Hkv * D + table.numel() + 2)
         + 4.0 * 2 * Hkv * n_table * G * (D + 2), 4.0 * G * D * P * n_live * Hkv,
         FP32_OPS_PER_S, card_line,
         pairs=lambda out, ref: _partial_pairs(torch, "paged_attention/starcoder2", out, ref))
+    emit({"phase": "kernel_extra", "name": "paged_attention/starcoder2",
+          **_paged_extra(torch, kern, *a, W)})
 
     # the identities, bit for bit
     q = prefill[0]
@@ -1156,33 +1220,29 @@ def ring_int8_kernel_phase(torch, card_line: str) -> dict:
         B, Hkv, G, D = q.shape
         kq, vq, ks, vs = _int8_pool(torch, g, n_phys, P, Hkv, D, dev)
         n_table = table.shape[1]
-        kpos0 = torch.arange(n_table, device=dev) * P  # first position of each page
-        live = (table != 0) & (kpos0[None] <= pos[:, None])
-        if window:
-            live &= kpos0[None] + P - 1 > pos[:, None] - window
-        n_live = float(live.sum())
+        n_live = float(_live_pages(torch, table, pos, P, window).sum())
         # q, the live pages' codes and scales, the table and positions in;
         # every table page's partial out
         nbytes = (4.0 * (q.numel() + B * n_table + B) + n_live * Hkv * (2 * P * D + 8)
                   + 4.0 * B * Hkv * n_table * G * (D + 2))
         a = (q, kq, vq, ks, vs, table, pos)
-        return _check_and_time(
-            torch, name, lambda: paged_attention.paged_attention_partials_quant(*a, window=window),
+        kern = lambda: paged_attention.paged_attention_partials_quant(  # noqa: E731
+            *a, window=window)
+        res = _check_and_time(
+            torch, name, kern,
             lambda: paged_attention.paged_attention_partials_quant_reference(*a, window=window),
             None, [B, Hkv, G, D, P, n_table, n_phys, window, "int8"], nbytes,
             4.0 * G * D * P * n_live * Hkv, FP32_OPS_PER_S, card_line,
             pairs=lambda out, ref: _partial_pairs(torch, name, out, ref))
+        emit({"phase": "kernel_extra", "name": name,
+              **_paged_extra(torch, kern, q, kq, vq, table, pos, window)})
+        return res
 
     # OLMo-1B's decode: batch 4, 32 table pages of 8, slots at 217, 100 and 37
     # with their whole allocation, the last slot parked
-    B, n_table, n_phys, P = 4, 32, 129, 8
-    q = torch.randn(B, 16, 1, 128, generator=g, device=dev)
-    ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
-    table = torch.zeros(B, n_table, dtype=torch.int32, device=dev)
-    pos = torch.zeros(B, dtype=torch.int32, device=dev)
-    for b, p in enumerate((217, 100, 37)):
-        table[b] = ids[b * n_table:(b + 1) * n_table]
-        pos[b] = p
+    n_table, n_phys, P = 32, 129, 8
+    q = torch.randn(4, 16, 1, 128, generator=g, device=dev)
+    table, pos = _olmo_decode_table(torch, g, dev, n_table, n_phys)
     results["paged_attention_quant"] = quant_case("paged_attention_quant", q, table, pos,
                                                   n_phys, P, 0)
     # StarCoder2-3B's decode: two slots 31 tokens into prompts of 5000 and
@@ -1191,14 +1251,7 @@ def ring_int8_kernel_phase(torch, card_line: str) -> dict:
     n_table = -(-(max(SC_LENGTHS) + SC_MAX_NEW) // SC_PAGE)
     n_phys = 1 + 2 * n_table
     q = torch.randn(2, 2, 12, 128, generator=g, device=dev)
-    ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
-    table = torch.zeros(2, n_table, dtype=torch.int32, device=dev)
-    pos = torch.tensor([SC_LENGTHS[0] + SC_MAX_NEW - 1, SC_LENGTHS[1] + SC_MAX_NEW - 1],
-                       dtype=torch.int32, device=dev)
-    for b in range(2):
-        need = -(-(SC_LENGTHS[b] + SC_MAX_NEW) // SC_PAGE)
-        table[b, :need] = ids[b * n_table:b * n_table + need]
-        table[b, :(int(pos[b]) - W) // SC_PAGE] = 0  # retired
+    table, pos = _starcoder_decode_table(torch, g, dev, n_table, n_phys, W)
     results["paged_attention_quant/starcoder2"] = quant_case(
         "paged_attention_quant/starcoder2", q, table, pos, n_phys, SC_PAGE, W)
 
@@ -1882,10 +1935,12 @@ def _near_bth(sel, j: int) -> bool:
 
 def _redesign_inputs(torch):
     """The cases the comparison mode times: lr_hvp at each of
-    HVP_CASES (mimic rows, random weights from SEED) and decode_attention at
-    RecurrentGemma-9B's and OLMo-1B's ring decode shapes. Each name maps to
-    (kernel, plain version, what to pass the kernel's C entry point)."""
-    from repro_torch.kernels import lr_hvp, ops
+    HVP_CASES (mimic rows, random weights from SEED), decode_attention at
+    RecurrentGemma-9B's and OLMo-1B's ring decode shapes, and the paged
+    partials, float32 and int8, at OLMo-1B's and StarCoder2-3B's decode
+    shapes. Each name maps to (kernel, plain version, what to pass the
+    kernel)."""
+    from repro_torch.kernels import lr_hvp, ops, paged_attention
     from repro_torch.models.attention import AttnSpec, ring_valid
 
     dev = torch.device("cuda")
@@ -1908,35 +1963,65 @@ def _redesign_inputs(torch):
         a = (q, k, v, ring_valid(torch.tensor(pos, device=dev), W, spec), spec)
         cases[name] = (lambda a=a: ops.decode_attention(*a),
                        lambda a=a: ops.decode_attention_ref(*a), a)
+    n_sc = -(-(max(SC_LENGTHS) + SC_MAX_NEW) // SC_PAGE)
+    P, Dh = SC_PAGE, 128  # both configurations' page size and head width
+    pa = paged_attention
+    for name, (B, Hkv, G, n_table, n_phys, window) in {
+            "paged_attention": (4, 16, 1, 32, 129, 0),
+            "paged_attention/starcoder2": (2, 2, 12, n_sc, 1 + 2 * n_sc, 4096)}.items():
+        q = torch.randn(B, Hkv, G, Dh, generator=g, device=dev)
+        kv = [torch.randn(n_phys, P, Hkv, Dh, generator=g, device=dev) for _ in range(2)]
+        table, pos = (_starcoder_decode_table(torch, g, dev, n_table, n_phys, window) if window
+                      else _olmo_decode_table(torch, g, dev, n_table, n_phys))
+        a = (q, *kv, table, pos)
+        cases[name] = (lambda a=a, w=window: pa.paged_attention_partials(*a, window=w),
+                       lambda a=a, w=window: pa.paged_attention_partials_reference(*a, window=w),
+                       a)
+        a = (q, *_int8_pool(torch, g, n_phys, P, Hkv, Dh, dev), table, pos)
+        cases[name.replace("paged_attention", "paged_attention_quant")] = (
+            lambda a=a, w=window: pa.paged_attention_partials_quant(*a, window=w),
+            lambda a=a, w=window: pa.paged_attention_partials_quant_reference(*a, window=w), a)
     return cases
 
 
 def redesign_phase(torch, card_line: str, tree: str) -> None:
     """One process of the comparison mode, on the repro_torch it imported
     (this tree's or, with --src, another's): each case of _redesign_inputs
-    held against its plain version (the kernels' tolerance) and repeated
-    bit for bit, then the device time and host enqueue time of each of 20
-    calls (call_times: a slow device time beside a slow enqueue is the
-    host's) and the host cost (host_us); and lr_grad's digests at
-    tests/test_torch_gpu.py's LR_GRAD_SHAPES."""
+    held against its plain version (the kernels' tolerance; the paged
+    partials as _partial_pairs pairs them) and repeated bit for bit, then
+    the device time and host enqueue time of each of 20 calls (call_times:
+    a slow device time beside a slow enqueue is the host's) and the host
+    cost (host_us); and lr_grad's digests at tests/test_torch_gpu.py's
+    LR_GRAD_SHAPES."""
     import importlib.util
 
     from repro_torch.kernels import build
 
-    build.build_all(("lr_hvp", "decode_attention", "lr_grad"))  # at once, before any timing
+    # at once, before any timing
+    build.build_all(("lr_hvp", "decode_attention", "lr_grad", "paged_attention"))
     cases = _redesign_inputs(torch)
     for name, (kern, plain, _) in cases.items():
         out, ref = kern(), plain()
-        err = float((out - ref).abs().max())
-        limit = TOL_REL * float(ref.abs().max()) + TOL_ABS
-        if not (bool(torch.isfinite(out).all()) and err <= limit and torch.equal(out, kern())):
-            fail(f"{tree} {name}: max|kernel - plain| = {err} (limit {limit}) or no bitwise repeat")
+        tuples = isinstance(out, tuple)
+        pairs = _partial_pairs(torch, f"{tree} {name}", out, ref) if tuples else [(out, ref)]
+        err, ok = 0.0, True
+        for x, y in pairs:
+            e = float((x - y).abs().max())
+            limit = TOL_REL * float(y.abs().max()) + TOL_ABS
+            ok = ok and bool(torch.isfinite(x).all()) and e <= limit
+            err = max(err, e)
+        again = kern()
+        if not (ok and all(torch.equal(x, y) for x, y in
+                           (zip(out, again) if tuples else [(out, again)]))):
+            fail(f"{tree} {name}: max|kernel - plain| = {err} past the tolerance or no bitwise "
+                 "repeat")
         device, host = call_times(torch, kern)
         emit({"phase": "redesign", "tree": tree, "name": name, "max_abs_err": err,
               "kernel_ms": sum(device) / len(device),
               "kernel_ms_median": sorted(device)[len(device) // 2],
               "kernel_ms_max": max(device), "call_ms": device, "enqueue_ms": host,
-              "host_us_per_call": host_us(torch, kern), "card": card_line})
+              "host_us_per_call": host_us(torch, kern),
+              "host_us_per_call_min": host_us_min(torch, kern), "card": card_line})
     # the CG solve of a round's t_select (influence_vector on backend cuda:
     # lr_grad once, lr_hvp each iteration) at the mimic widths, host clock
     # around each call, synchronized
@@ -1995,14 +2080,15 @@ def compare_mode(parent: str) -> None:
             if rec["phase"] == "redesign":
                 entry = summary.setdefault(rec["name"], {}).setdefault(
                     tree, {"ms": [], "ms_median_of_calls": [], "ms_max_of_calls": [],
-                           "host_us": []})
+                           "host_us": [], "host_us_min": []})
                 entry["ms"].append(rec["kernel_ms"])
                 entry["ms_median_of_calls"].append(rec["kernel_ms_median"])
                 entry["ms_max_of_calls"].append(rec["kernel_ms_max"])
                 entry["host_us"].append(rec["host_us_per_call"])
+                entry["host_us_min"].append(rec.get("host_us_per_call_min"))
     for name, trees in summary.items():
         for entry in trees.values():
-            for key in ("ms", "ms_median_of_calls", "ms_max_of_calls", "host_us"):
+            for key in ("ms", "ms_median_of_calls", "ms_max_of_calls", "host_us", "host_us_min"):
                 entry[f"{key}_median"] = statistics.median(entry[key])
     digests = {tree: [r["digests"] for r in recs if r["phase"] == "lr_grad_digests"]
                for tree, recs in runs.items()}

@@ -136,31 +136,35 @@ def check(kernel: str, n_classes: int, **tensors) -> torch.device:
 def check_attention(kernel: str, **tensors) -> torch.device:
     """The attention kernels' input check: raise unless every tensor lies on
     one CUDA device, is non-empty, has the expected shape and a last stride
-    of 1 (and is contiguous where asked), the int32 ones are int32 and the
-    float ones share one of `FLOAT_TYPES`. `tensors` maps a name to
-    `(tensor, shape, kind, contiguous)` with kind "float" or "int32".
-    Returns the device."""
-    device, ftype = None, None
+    of 1 (and is contiguous where asked), the "float" ones share one of
+    `FLOAT_TYPES` and the others have their own dtype. `tensors` maps a name
+    to `(tensor, shape, kind, contiguous)` with kind "float", "int32" or a
+    torch dtype. Returns the device. (It reads as few tensor attributes as
+    it can: each read costs host time on every call.)"""
+    first, index, ftype = None, None, None
     for name, (t, shape, kind, contiguous) in tensors.items():
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{kernel}: {name} is on {t.device}, not on a CUDA device")
-        if device is not None and t.device != device:
-            raise ValueError(f"{kernel}: {name} is on {t.device}, the others on {device}")
-        device = t.device
-        if kind == "int32":
-            ok = t.dtype == torch.int32
+        if first is None:
+            first, index = t, t.get_device()
+        elif t.get_device() != index:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, the others on {first.device}")
+        dtype = t.dtype
+        if kind == "float":
+            ok = dtype in FLOAT_TYPES and dtype == (ftype or dtype)
+            ftype = ftype or dtype
         else:
-            ok = t.dtype in FLOAT_TYPES and t.dtype == (ftype or t.dtype)
-            ftype = ftype or t.dtype
+            ok = dtype == (torch.int32 if kind == "int32" else kind)
         laid_out = t.is_contiguous() if contiguous else t.stride(-1) == 1
-        if not ok or tuple(t.shape) != tuple(shape) or not laid_out:
-            want = "int32" if kind == "int32" else f"float32 or bfloat16 (as the others, {ftype})"
+        if not ok or t.shape != shape or not laid_out:
+            want = (f"float32 or bfloat16 (as the others, {ftype})" if kind == "float"
+                    else str(kind))
             raise ValueError(f"{kernel}: {name} must be a {want} tensor of shape {tuple(shape)}"
                              f"{' (contiguous)' if contiguous else ' with a last stride of 1'}, "
-                             f"got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
-        if t.numel() == 0:
+                             f"got {dtype} {tuple(t.shape)} strides {t.stride()}")
+        if 0 in shape:
             raise ValueError(f"{kernel}: {name} is empty")
-    return device
+    return first.device
 
 
 def launch(kernel: str, fn, device: torch.device, *args) -> None:

@@ -9,20 +9,29 @@ kpos > pos_b - window). Physical page 0 is the trash page: a table entry of
 
 Replaces the TPU kernel
 `repro/kernels/paged_attention.py::paged_attention_partials_pallas`. The
-CUDA kernel (`csrc/paged_attention.cu`) gives each (page, kv head, slot)
-cell its own CTA and writes the same three partial tensors; the merge,
-`combine_pages`, is plain PyTorch shared by both forms, as in the JAX
-package it is jnp outside the kernel. Bound on the H100: device-memory
-bytes, one read of every valid page's K and V rows.
+CUDA kernel (`csrc/paged_attention.cu`) gives each (slot, kv head, page)
+cell one warp, several warps a CTA and no block barrier: a trash page, or
+a page with no valid key, writes the neutral partial without reading the
+pool; a live page's K and V rows go to the warp's shared memory in 16-byte
+copies all issued at once, and the scores, softmax and p.v run in
+registers, a few query rows at a time. It writes the same three partial
+tensors, in one allocation; the merge, `combine_pages`, is plain PyTorch
+shared by both forms, as in the JAX package it is jnp outside the kernel.
+Bound on the H100: device-memory bytes, one read of every live page's K
+and V rows and the partials written; at decode sizes latency weighs as
+much (the source's note says what the design does about it).
 
 Its int8 mode (`paged_attention_partials_quant`, the C entry
 `chef_paged_attention_quant`) replaces
 `paged_attention_partials_quant_pallas`: the pools hold int8 codes with one
-float32 scale per (page, kv head), and each page is dequantized as
-code * scale where it is staged (`repro`'s `_dequant_page`), so the pool
+float32 scale per (page, kv head), and each code is widened in registers as
+code * scale (`repro`'s `_dequant_page`, the same bits), so the pool
 crosses memory at a quarter of the float32 bytes.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -34,6 +43,23 @@ _ARGTYPES = ([common.PTR] * 8 + [common.INT] * 7 + [common.FLOAT] * 3
              + [common.INT, common.PTR])
 _QUANT_ARGTYPES = ([common.PTR] * 10 + [common.INT] * 7 + [common.FLOAT] * 3
                    + [common.INT, common.PTR])
+_PLAN_ARGTYPES = [common.INT] * 4 + [common.PTR]
+
+
+@functools.cache
+def paged_plan(G: int, D: int, P: int, kv_bytes: int) -> dict:
+    """The kernels' launch at these shapes, as `csrc/paged_attention.cu`
+    plans it (kv_bytes: 4 float32, 2 bfloat16, 1 int8 pools): query `rows`
+    a warp takes at once, `warps` (page cells) a CTA, `keys` whose scores
+    one transpose reduction sums, `smem` bytes a CTA. For reports only: the
+    kernel plans its own launch. Raises where it takes no such shapes."""
+    fn = build.entry("paged_attention", "chef_paged_plan", _PLAN_ARGTYPES)
+    plan = (ctypes.c_int * 4)()
+    err = fn(G, D, P, kv_bytes, plan)
+    if err != 0:
+        raise ValueError(f"paged_attention: no launch for G {G}, D {D}, P {P}, "
+                         f"{kv_bytes}-byte pools: {build.error_string('paged_attention', err)}")
+    return dict(zip(("rows", "warps", "keys", "smem"), plan))
 
 
 def _page_partial(q, k, v, valid, *, scale: float, softcap: float):
@@ -112,6 +138,20 @@ def combine_pages(m, l, acc) -> torch.Tensor:
     return acc_tot / torch.clamp(l_tot, min=1e-30)[..., None]
 
 
+def _outputs(B: int, Hkv: int, n_pages: int, G: int, D: int, device):
+    """The kernels' outputs in one allocation: acc [B, Hkv, n_pages, G, D],
+    then m and l [B, Hkv, n_pages, G], contiguous views (as_strided: the
+    fewest host ops); and the address of each."""
+    rows = B * Hkv * n_pages * G
+    buf = torch.empty(rows * (D + 2), device=device)
+    shape, strides = (B, Hkv, n_pages, G), (Hkv * n_pages * G, n_pages * G, G, 1)
+    ptr = buf.data_ptr()
+    m = buf.as_strided(shape, strides, rows * D)
+    l = buf.as_strided(shape, strides, rows * (D + 1))
+    acc = buf.as_strided(shape + (D,), tuple(x * D for x in strides) + (1,))
+    return (m, l, acc), (ptr + 4 * rows * D, ptr + 4 * rows * (D + 1), ptr)
+
+
 def paged_attention_partials(q, k_pages, v_pages, page_table, pos, *, window: int = 0,
                              softcap: float = 0.0, scale: float = None):
     """Per-page partials (m, l, acc), float32: the kernel on a CUDA tensor, the
@@ -119,7 +159,7 @@ def paged_attention_partials(q, k_pages, v_pages, page_table, pos, *, window: in
     of one float type; table [B, n_pages] and pos [B] int32. Every table
     entry must lie in [0, N_pages): the kernel reads the pages it is given
     without a bounds check (the serving engine owns the table)."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return paged_attention_partials_reference(q, k_pages, v_pages, page_table, pos,
                                                   window=window, softcap=softcap, scale=scale)
     B, Hkv, G, D = q.shape
@@ -130,16 +170,13 @@ def paged_attention_partials(q, k_pages, v_pages, page_table, pos, *, window: in
         "paged_attention", q=(q, (B, Hkv, G, D), "float", True),
         k_pages=(k_pages, pool, "float", True), v_pages=(v_pages, pool, "float", True),
         page_table=(page_table, (B, n_pages), "int32", True), pos=(pos, (B,), "int32", True))
-    m = torch.empty(B, Hkv, n_pages, G, device=device)
-    l = torch.empty_like(m)
-    acc = torch.empty(B, Hkv, n_pages, G, D, device=device)
+    out, ptrs = _outputs(B, Hkv, n_pages, G, D, device)
     fn = build.entry("paged_attention", "chef_paged_attention", _ARGTYPES)
     common.launch("paged_attention", fn, device, q.data_ptr(), k_pages.data_ptr(),
-                  v_pages.data_ptr(), page_table.data_ptr(), pos.data_ptr(), m.data_ptr(),
-                  l.data_ptr(), acc.data_ptr(), B, Hkv, G, D, P, n_pages, int(window),
-                  float(softcap), 1.0 / softcap if softcap else 0.0, float(scale or D**-0.5),
-                  int(q.dtype == torch.bfloat16))
-    return m, l, acc
+                  v_pages.data_ptr(), page_table.data_ptr(), pos.data_ptr(), *ptrs, B, Hkv, G,
+                  D, P, n_pages, int(window), float(softcap), 1.0 / softcap if softcap else 0.0,
+                  float(scale or D**-0.5), int(q.dtype == torch.bfloat16))
+    return out
 
 
 def paged_attention_partials_quant(q, k_pages, v_pages, k_scale, v_scale, page_table, pos, *,
@@ -149,33 +186,25 @@ def paged_attention_partials_quant(q, k_pages, v_pages, k_scale, v_scale, page_t
     contiguous float32 or bfloat16; pools [N_pages, P, Hkv, D] contiguous
     int8; scales [N_pages, Hkv] contiguous float32; table and pos as
     `paged_attention_partials`."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return paged_attention_partials_quant_reference(
             q, k_pages, v_pages, k_scale, v_scale, page_table, pos, window=window,
             softcap=softcap, scale=scale)
     B, Hkv, G, D = q.shape
     n_phys, P = k_pages.shape[:2]
     n_pages = page_table.shape[1]
+    pool = (n_phys, P, Hkv, D)
     device = common.check_attention(
         "paged_attention_quant", q=(q, (B, Hkv, G, D), "float", True),
+        k_pages=(k_pages, pool, torch.int8, True), v_pages=(v_pages, pool, torch.int8, True),
+        k_scale=(k_scale, (n_phys, Hkv), torch.float32, True),
+        v_scale=(v_scale, (n_phys, Hkv), torch.float32, True),
         page_table=(page_table, (B, n_pages), "int32", True), pos=(pos, (B,), "int32", True))
-    for name, t, dtype, shape in (("k_pages", k_pages, torch.int8, (n_phys, P, Hkv, D)),
-                                  ("v_pages", v_pages, torch.int8, (n_phys, P, Hkv, D)),
-                                  ("k_scale", k_scale, torch.float32, (n_phys, Hkv)),
-                                  ("v_scale", v_scale, torch.float32, (n_phys, Hkv))):
-        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"paged_attention_quant: {name} must be a contiguous {dtype} "
-                             f"tensor of shape {shape} on {device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    m = torch.empty(B, Hkv, n_pages, G, device=device)
-    l = torch.empty_like(m)
-    acc = torch.empty(B, Hkv, n_pages, G, D, device=device)
+    out, ptrs = _outputs(B, Hkv, n_pages, G, D, device)
     fn = build.entry("paged_attention_quant", "chef_paged_attention_quant", _QUANT_ARGTYPES)
     common.launch("paged_attention_quant", fn, device, q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-                  page_table.data_ptr(), pos.data_ptr(), m.data_ptr(), l.data_ptr(),
-                  acc.data_ptr(), B, Hkv, G, D, P, n_pages, int(window), float(softcap),
-                  1.0 / softcap if softcap else 0.0, float(scale or D**-0.5),
-                  int(q.dtype == torch.bfloat16))
-    return m, l, acc
+                  page_table.data_ptr(), pos.data_ptr(), *ptrs, B, Hkv, G, D, P, n_pages,
+                  int(window), float(softcap), 1.0 / softcap if softcap else 0.0,
+                  float(scale or D**-0.5), int(q.dtype == torch.bfloat16))
+    return out

@@ -351,9 +351,10 @@ def test_attention_kernels_match_plain():
       bit on a repeat, one launch a call; a row with no visible key gives
       zeros;
     * the paged partials kernel against its plain version at each of
-      PAGED_CASES: m, l, acc and the merged output within the tolerance,
-      trash and wholly invalid pages exactly (-1e30, 0, 0), bit for bit on
-      a repeat, one launch a call;
+      PAGED_CASES: m, l, acc on live pages and the merged output within
+      the tolerance, trash and wholly invalid pages exactly (-1e30, 0, 0)
+      and unread (NaN there changes no bit), bit for bit on a repeat, one
+      launch a call;
     * no fallback: bad input on the card raises."""
     dev = _card()
     for case in FLASH_CASES:
@@ -386,18 +387,32 @@ def _flash_case(dev, B, Sq, Skv, Hq, Hkv, D, off, window, softcap, dtype):
     assert torch.equal(blind, torch.zeros_like(blind))
 
 
-# B, Hkv, G, D, P, table pages, pool pages, window, softcap, dtype
+# B, Hkv, G, D, P, table pages, pool pages, window, softcap, dtype[, slots]
+# (slots: `_paged_inputs`' positions a slot)
 PAGED_CASES = [
     (4, 16, 1, 128, 8, 32, 129, 0, 0.0, torch.float32),  # olmo-1b decode, batch 4
     (3, 2, 4, 64, 8, 6, 20, 5, 0.0, torch.float32),
     (2, 2, 2, 32, 16, 4, 9, 0, 20.0, torch.bfloat16),
+    # olmo-1b's decode as chip_smoke.py holds it: every slot's 32 pages
+    # allocated, most past its position
+    (4, 16, 1, 128, 8, 32, 129, 0, 0.0, torch.float32, (217, 100, 37, -1)),
+    # starcoder2-3b's decode: G 12, window 4096, pages behind the window
+    # retired but for a few still in the table
+    (2, 2, 12, 128, 8, 754, 1509, 4096, 0.0, torch.float32, (5031, 6031)),
+    # rows that do not start 16-byte aligned (D 34), float32 and bf16
+    (3, 2, 3, 34, 8, 6, 40, 12, 0.0, torch.float32),
+    (3, 2, 2, 34, 8, 6, 40, 0, 10.0, torch.bfloat16),
+    (2, 4, 4, 128, 16, 10, 41, 40, 0.0, torch.float32, (150, 37)),  # P 16
 ]
 
 
-def _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype, seed=0):
+def _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype, seed=0, slots=None, window=0):
     """Pools, a block table and positions: slot 0 at a page boundary, slot 1
     with an allocated page past its position, the last slot parked (all
-    trash, position 0); pages drawn without repeats from 1..n_phys-1."""
+    trash, position 0); pages drawn without repeats from 1..n_phys-1. With
+    `slots` (a position a slot, -1 parked) instead: every other slot holds
+    all n_table pages, and with a window the pages behind it are retired to
+    the trash page but for the last two."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, 1, Hkv * G, D, generator=g, device=dev).to(dtype)
     k_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev).to(dtype)
@@ -405,6 +420,14 @@ def _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype, seed=0):
     ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
     table = torch.zeros(B, n_table, dtype=torch.int32, device=dev)
     pos = torch.zeros(B, dtype=torch.int32, device=dev)
+    if slots is not None:
+        for b, p in enumerate(slots):
+            if p >= 0:
+                table[b] = ids[b * n_table:(b + 1) * n_table]
+                pos[b] = p
+                if window:
+                    table[b, :max(0, (p - window + 1) // P - 2)] = 0
+        return q, k_pages, v_pages, table, pos
     used = 0
     for b in range(B - 1):
         n = min(n_table, (n_phys - 1 - used) // max(B - 1, 1), 2 + 3 * b)
@@ -414,28 +437,58 @@ def _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype, seed=0):
     return q, k_pages, v_pages, table, pos
 
 
-def _paged_case(dev, B, Hkv, G, D, P, n_table, n_phys, window, softcap, dtype):
+def _dead_pages(table, pos, P, window):
+    """[B, n_table]: the pages that give the neutral partial, the trash page
+    and every page none of whose keys is visible."""
+    first = torch.arange(table.shape[1], device=table.device) * P
+    dead = (table == 0) | (first[None] > pos[:, None])
+    if window:
+        dead |= first[None] + P - 1 <= pos[:, None] - window
+    return dead
+
+
+def _check_partials(out, ref, dead):
+    """The partials (m, l, acc) against the plain version's on live pages,
+    within the tolerance of the plain live values, and exactly (-1e30, 0, 0)
+    on dead pages."""
+    cells = dead[:, None, :, None].expand(out[0].shape)  # [B, Hkv, n_table, G]
+    for x, y in zip(out, ref):
+        assert x.shape == y.shape and x.dtype == torch.float32
+    m, l, acc = out
+    assert torch.equal(m[cells], torch.full_like(m[cells], -1e30))
+    assert not l[cells].any() and not acc[cells].any()
+    for x, y in zip(out, ref):
+        x, y = x[~cells], y[~cells]
+        assert float((x - y).abs().max()) <= TOL_REL * float(y.abs().max()) + TOL_ABS
+
+
+def _unread(call, out, pools, table, dead):
+    """Poison what the kernel must not read, the trash page and every table
+    page with no visible key (NaN in each of `pools`, indexed by page), and
+    call it again: the same bits."""
+    ids = torch.cat([table[dead], table.new_zeros(1)]).unique().long()
+    for t in pools:
+        t[ids] = float("nan")
+    assert all(torch.equal(a, b) for a, b in zip(out, call()))
+
+
+def _paged_case(dev, B, Hkv, G, D, P, n_table, n_phys, window, softcap, dtype, slots=None):
     from repro_torch.kernels import ops, paged_attention
 
-    q, k_pages, v_pages, table, pos = _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype)
+    q, k_pages, v_pages, table, pos = _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype,
+                                                    slots=slots, window=window)
     qg = q.reshape(B, Hkv, G, D)
     kw = dict(window=window, softcap=softcap)
+    call = lambda: paged_attention.paged_attention_partials(  # noqa: E731
+        qg, k_pages, v_pages, table, pos, **kw)
     before = LAUNCHES["paged_attention"]
-    out = paged_attention.paged_attention_partials(qg, k_pages, v_pages, table, pos, **kw)
+    out = call()
     torch.cuda.synchronize()
     ref = paged_attention.paged_attention_partials_reference(qg, k_pages, v_pages, table, pos,
                                                              **kw)
-    for a, b in zip(out, ref):
-        assert a.shape == b.shape and a.dtype == torch.float32
-        assert float((a - b).abs().max()) <= TOL_REL * float(b.abs().max()) + TOL_ABS
-    m, l, acc = out
-    kpos_first = torch.arange(n_table, device=dev) * P
-    dead = (table == 0) | (kpos_first[None] > pos[:, None])  # [B, n_table]
-    assert torch.equal(m.permute(0, 2, 1, 3)[dead], torch.full_like(m.permute(0, 2, 1, 3)[dead],
-                                                                   -1e30))
-    assert not l.permute(0, 2, 1, 3)[dead].any() and not acc.permute(0, 2, 1, 3, 4)[dead].any()
-    again = paged_attention.paged_attention_partials(qg, k_pages, v_pages, table, pos, **kw)
-    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    dead = _dead_pages(table, pos, P, window)
+    _check_partials(out, ref, dead)
+    assert all(torch.equal(a, b) for a, b in zip(out, call()))
     assert LAUNCHES["paged_attention"] == before + 2
     from repro_torch.models.attention import AttnSpec
 
@@ -443,6 +496,7 @@ def _paged_case(dev, B, Hkv, G, D, P, n_table, n_phys, window, softcap, dtype):
     o = ops.paged_decode_attention(q, k_pages, v_pages, table, pos, spec)
     o_ref = ops.paged_decode_attention_ref(q, k_pages, v_pages, table, pos, spec)
     assert float((o.float() - o_ref.float()).abs().max()) <= _tol(dtype, o_ref)
+    _unread(call, out, (k_pages, v_pages), table, dead)
 
 
 def _attention_kernels_raise(dev):
@@ -770,29 +824,38 @@ def test_decode_attention_kernel_matches_plain():
     assert torch.equal(local, ops.flash_attention(q, k, v, pos, pos, spec))
 
 
-# B, Hkv, G, D, P, table pages, pool pages, window, softcap, q dtype
+# B, Hkv, G, D, P, table pages, pool pages, window, softcap, q dtype[, slots]
 QUANT_CASES = [
     (4, 16, 1, 128, 8, 32, 129, 0, 0.0, torch.float32),  # olmo-1b decode, batch 4
     (2, 2, 12, 128, 8, 20, 41, 64, 0.0, torch.float32),  # starcoder2-like GQA with a window
     (3, 1, 16, 256, 8, 6, 20, 0, 20.0, torch.float32),  # D = 256, softcap
     (2, 2, 2, 32, 16, 4, 9, 0, 0.0, torch.bfloat16),
+    # olmo-1b's and starcoder2-3b's decode as chip_smoke.py holds them (see
+    # PAGED_CASES), rows of 34 codes (not 16-byte aligned), P 16
+    (4, 16, 1, 128, 8, 32, 129, 0, 0.0, torch.float32, (217, 100, 37, -1)),
+    (2, 2, 12, 128, 8, 754, 1509, 4096, 0.0, torch.float32, (5031, 6031)),
+    (3, 2, 2, 34, 8, 6, 40, 12, 0.0, torch.float32),
+    (2, 2, 4, 128, 16, 10, 41, 40, 0.0, torch.bfloat16, (150, 37)),
 ]
 
 
 def test_quant_paged_kernel_matches_plain():
     """The int8 paged partials kernel against its plain version at each of
     QUANT_CASES (int8 pools with positive per-(page, head) scales, a parked
-    slot, a page past its slot's position): m, l, acc and the merged output
-    within the tolerance, trash and wholly invalid pages exactly (-1e30, 0,
-    0), bit for bit on a repeat, one launch a call; float pools raise."""
+    slot, pages past a slot's position or behind its window): m, l, acc on
+    live pages and the merged output within the tolerance, trash and wholly
+    invalid pages exactly (-1e30, 0, 0) and unread (NaN scales there change
+    no bit), bit for bit on a repeat, one launch a call; float pools
+    raise."""
     from repro_torch.kernels import ops, paged_attention
     from repro_torch.models.attention import AttnSpec
 
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(3)
-    for B, Hkv, G, D, P, n_table, n_phys, window, softcap, dtype in QUANT_CASES:
-        q, k_pages, v_pages, table, pos = _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys,
-                                                        torch.float32, seed=4)
+    for B, Hkv, G, D, P, n_table, n_phys, window, softcap, dtype, *slots in QUANT_CASES:
+        q, k_pages, v_pages, table, pos = _paged_inputs(
+            dev, B, Hkv, G, D, P, n_table, n_phys, torch.float32, seed=4,
+            slots=slots[0] if slots else None, window=window)
         q = q.to(dtype)
         kq = torch.randint(-127, 128, k_pages.shape, generator=g, device=dev).to(torch.int8)
         vq = torch.randint(-127, 128, v_pages.shape, generator=g, device=dev).to(torch.int8)
@@ -801,26 +864,21 @@ def test_quant_paged_kernel_matches_plain():
         qg = q.reshape(B, Hkv, G, D)
         kw = dict(window=window, softcap=softcap)
         a = (qg, kq, vq, ks, vs, table, pos)
+        call = lambda a=a, kw=kw: paged_attention.paged_attention_partials_quant(  # noqa: E731
+            *a, **kw)
         before = LAUNCHES["paged_attention_quant"]
-        out = paged_attention.paged_attention_partials_quant(*a, **kw)
+        out = call()
         torch.cuda.synchronize()
         ref = paged_attention.paged_attention_partials_quant_reference(*a, **kw)
-        m, l, acc = out
-        kpos_first = torch.arange(n_table, device=dev) * P
-        dead = ((table == 0) | (kpos_first[None] > pos[:, None]))[:, None, :, None]
-        dead = dead.expand_as(m)
-        assert torch.equal(m[dead], torch.full_like(m[dead], -1e30))
-        assert not l[dead].any() and not acc[dead].any()
-        for x, y in zip((m[~dead], l, acc), (ref[0][~dead], ref[1], ref[2])):
-            assert x.dtype == torch.float32
-            assert float((x - y).abs().max()) <= TOL_REL * float(y.abs().max()) + TOL_ABS
-        again = paged_attention.paged_attention_partials_quant(*a, **kw)
-        assert all(torch.equal(x, y) for x, y in zip(out, again))
+        dead = _dead_pages(table, pos, P, window)
+        _check_partials(out, ref, dead)
+        assert all(torch.equal(x, y) for x, y in zip(out, call()))
         assert LAUNCHES["paged_attention_quant"] == before + 2
         spec = AttnSpec(True, window, softcap)
         o = ops.quant_paged_decode_attention(q, kq, vq, ks, vs, table, pos, spec)
         o_ref = ops.quant_paged_decode_attention_ref(q, kq, vq, ks, vs, table, pos, spec)
         assert float((o.float() - o_ref.float()).abs().max()) <= _tol(dtype, o_ref)
+        _unread(call, out, (ks, vs), table, dead)
     with pytest.raises(ValueError, match="int8"):
         paged_attention.paged_attention_partials_quant(qg, k_pages.to(dtype), vq, ks, vs, table,
                                                        pos)
