@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`src/repro_torch`) on one H100: the CHEF
-cleaning loop, the paged serving path, the sliding-window serving path, the
-ring serving path and the int8 page pools.
+cleaning loop (blocking and pipelined, with a served model as annotator, and
+as jobs of the cleaning service), the paged serving path, the
+sliding-window serving path, the ring serving path and the int8 page pools.
 
     python3 chip_smoke.py
 
@@ -23,6 +24,12 @@ ring serving path and the int8 page pools.
    contiguously; and replay_correction at r = 1 to 10 slots in each regime
    the launch takes there (few_rows up to its slot limit, many_rows at
    every r), each held and timed as above: where the regime switch lies.
+2b. lr_grad at the six validation sets' shapes of Table 3 (twitter, fact:
+   D 769; fashion, chexpert, mimic, retina: D 2049) and at mimic's with 16
+   classes: held and repeated as above, one launch a call, timed beside
+   its plain version, its bound and one torch.sum over the same rows (also
+   after a clean L2 flush), with its host cost a call; and on grids forced
+   to CTAs of at least 4, 8 and 16 rows beside its own.
 3. The same for the two attention kernels at OLMo-1B's full attention
    shapes (16 heads of 128): flash_attention at a 256-token prefill, a tail
    prefill (32 rows over 256 keys), GQA + window + softcap and bf16 (bf16
@@ -68,16 +75,17 @@ ring serving path and the int8 page pools.
 4b. The block-sparse entry point, Backend.block_sparse_attention, with four
    block masks at StarCoder2's head shapes on `cuda` (launch counts set to
    0 just before, read just after) and on `reference`.
-4c. Serving StarCoder2-3B at full width (float32, random weights from SEED,
-   12.7 GB) in ServeEngine(batch_size=2, page_size=8): two prompts past the
+4c. Serving StarCoder2-3B at full width and 15 of its 30 layers (float32,
+   random weights from SEED, 6.4 GB) in ServeEngine(batch_size=2, page_size=8): two prompts past the
    4096 window (bucket 8192) and two of about 300 sharing a 128-token
    prefix, 32 new tokens each, on `cuda` unchunked, on `cuda` with
    prefill_chunk 2048 and on `reference`: the same tokens (or a top-2
    tie), logits within 1e-3 * (1 + |ref|), the same counters, and the
    launches, decode rounds and retired pages predicted before the runs;
    then the unchunked run under torch.profiler.
-4d. Serving RecurrentGemma-9B at full width (float32, random weights from
-   SEED, 34.3 GB, made on the card once StarCoder2-3B's are freed) in
+4d. Serving RecurrentGemma-9B at full width and 20 of its 38 layers
+   (float32, random weights from SEED, made on the card once StarCoder2-3B's
+   are freed) in
    ServeEngine(batch_size=2, max_len=4096) at cache "auto", which must
    resolve to the ring: a wave of prompts of 2,600 and 3,000 tokens (past
    the 2048 window: the ring roll runs and the ring wraps) and a prompt of
@@ -88,7 +96,7 @@ ring serving path and the int8 page pools.
    run under torch.profiler.
 5. Then `sgd_train` and `deltagrad_replay` on the kernels repeat bit for
    bit, and the CHEF main path, `run_chef(method="infl",
-   selector="increm")` on a mimic-shaped dataset made on the card, 3 rounds
+   selector="increm")` on a mimic-shaped dataset made on the card, 2 rounds
    of 10 labels, Table 4's lr, l2 and epochs: first with constructor
    "retrain", then with the default, DeltaGrad-L. Each runs on backend
    `cuda` (launch counts set to 0 just before, read just after) and on
@@ -104,6 +112,24 @@ ring serving path and the int8 page pools.
    with it off, in turns), run under sync-debug mode, and profiled (device busy time,
    idle share, device kernels a step, blocking runtime calls, the costliest
    host ops and device kernels).
+7b. Pipelined: the DeltaGrad-L run of 5 again through
+   make_scheduler(pipelined=True) with a 0.5 s annotator latency: the same
+   rows, labels and w bit for bit, a speculation every round, the card's
+   peak memory; then retrain under strategies 'two' and 'three' with a 2 s
+   latency, 3 rounds blocking and 3 pipelined, each round timed on the host
+   clock around step(): bit for bit alike, every round a hit under 'two' and
+   the pipelined mean round below the blocking one there.
+7c. ModelAnnotator: OLMo-1B at full width (random weights from SEED) in
+   ServeEngine(batch_size=4, max_len=1024, trace_logits=True) on `cuda`
+   annotates 2 rounds of 10 rows of Table 3's fact dataset (prompts of 776
+   tokens) through a blocking RoundScheduler on cleaning backends `cuda`
+   (launch counts set to 0 just before, read just after: 16 flash launches a
+   request, no paged) and `reference`: the same rows and labels; an engine on
+   `reference` gives the same labels or parts at a top-2 tie.
+7d. CleaningService: two workers, two jobs of 2 rounds on Table 3's twitter
+   dataset, one cancelled after its first round and resumed from its
+   checkpoint: every result equal to a direct scheduler run bit for bit, no
+   job failed.
 8. Prints the kernels line (launches from the DeltaGrad-L run on `cuda`,
    for flash and paged attention from the OLMo-1B run on `cuda`, for the
    int8 partials from its int8 run, for block-sparse attention from phase
@@ -115,16 +141,15 @@ ring serving path and the int8 page pools.
 Any failure exits non-zero. Needs a CUDA device; imports nothing of JAX or of
 the JAX package.
 
-A second mode, on one card, measures the redesigned kernels (lr_hvp,
-decode_attention, the float32 and int8 paged partials) against the parent
-commit:
+A second mode, on one card, measures the redesigned kernel (lr_grad)
+against the parent commit:
 
     python3 chip_smoke.py --compare PARENT   # PARENT: a checkout of the parent commit
 
-It runs both trees' kernels (and the CG solve) at the same cases in fresh
+It runs both trees' lr_grad at the Table 3 validation shapes in fresh
 processes in turns, with each call's device time and host enqueue time and
 the host cost a call (the mean of 200 calls, and the least of 10 batches
-of 20), and checks that lr_grad's results are equal on both.
+of 20), and prints each tree's lr_grad digests.
 """
 from __future__ import annotations
 
@@ -152,7 +177,9 @@ F1_TOL = 0.005  # final test F1, cuda run vs reference run
 N, D, C, BS, N_VAL = 78_487, 2049, 2, 2000, 579  # mimic: Table 3 sizes, D = 2048 + 1
 SEED = 0
 CSRC = "src/repro_torch/kernels/csrc"
-ROUNDS, B = 3, 10  # cleaning rounds of the main path, labels a round
+# cleaning rounds of the main path (cut from 3 to keep the script's time;
+# the DeltaGrad-L rounds run twice, blocking and pipelined), labels a round
+ROUNDS, B = 2, 10
 CORR_R = (1, 3, 64)  # changed slots of a replay step in the kernel phase
 LINE_R = 3  # the r reported in the kernels line: a mimic replay step changes 1-3 rows
 TRACE_STEPS = 600  # replay steps the trace phase profiles (69 explicit: 10 of burn-in, every 10th)
@@ -166,6 +193,12 @@ GATHERED = ("minibatch_grad", "replay_correction")  # the gathered kernels of cs
 HVP_CASES = (("lr_hvp", N, C), ("lr_hvp/C=3", N, 3), ("lr_hvp/C=16", N, 16),
              ("lr_hvp/N=200", 200, C))
 COMPARE_PROCS = 3  # fresh processes a side in the comparison mode, in turns
+# lr_grad's phase: the validation sets of Table 3 (name, rows, D, C), and
+# mimic's with 16 classes (past a thread's register blocks: rows_wide)
+LR_GRAD_VAL = (("twitter", 37, 769, 2), ("fashion", 146, 2049, 2), ("chexpert", 234, 2049, 2),
+               ("fact", 255, 769, 2), ("mimic", N_VAL, D, C), ("retina", 3512, D, 2),
+               ("mimic/C=16", N_VAL, D, 16))
+LR_GRAD_MIN_ROWS = (1, 4, 8, 16)  # the many-rows grids lr_grad's phase compares
 REPLACES = {
     "lr_grad": "src/repro/kernels/lr_grad.py:36",
     "lr_hvp": "src/repro/kernels/lr_hvp.py:39",
@@ -209,6 +242,7 @@ SC_LENGTHS = (5000, 6000, 300, 310)
 SC_SHARED = (2, 3)  # these share SC_PREFIX tokens: the second admitted is a prefix hit
 SC_PREFIX, SC_MAX_NEW, SC_BATCH, SC_PAGE = 128, 32, 2, 8
 SC_CHUNK = 2048  # the chunked run's prefill_chunk
+SC_LAYERS = 15  # of StarCoder2-3B's 30: depth cut to keep the script's time (widths whole)
 SC_SEQ = 8192  # the kernel phase's prefill width: the long prompts' bucket
 BLOCK_SPARSE_CALLS = 4  # Backend.block_sparse_attention calls of the block-sparse phase
 # the ring path: RecurrentGemma-9B at full width (window 2048), random weights
@@ -218,7 +252,16 @@ RG_LENGTHS = (2600, 3000, 400)
 RG_MAX_NEW = (16, 48, 24)
 RG_BATCH, RG_MAX_LEN = 2, 4096
 RG_WINDOW = 2048  # the ring of a local layer (configs/recurrentgemma_9b.py)
+# of RecurrentGemma-9B's 38 layers (12 super-blocks of RG-LRU, RG-LRU, local
+# and 2 RG-LRU at the tail): 6 super-blocks and the tail, depth cut to keep
+# the script's time (widths whole)
+RG_LAYERS = 20
 RG_DECODE_POS = 3030  # the kernel phase's decode position: the ring wrapped
+# the pipelined loop: DeltaGrad-L's annotator latency, then retrain's latency
+# and rounds under strategies 'two' and 'three'
+PIPE_DG_LATENCY, PIPE_LATENCY, PIPE_ROUNDS = 0.5, 2.0, 3
+ANN_ROUNDS, ANN_MAX_LEN = 2, 1024  # the model annotator's rounds and its engine's max_len
+SERVICE_ROUNDS = 2  # rounds of each job of the service phase
 
 
 def fail(msg: str) -> None:
@@ -560,6 +603,75 @@ def kernel_phase(torch, card_line: str) -> dict:
     return results
 
 
+def lr_grad_phase(torch, card_line: str) -> None:
+    """lr_grad at the validation shapes of the paper's Table 3 (LR_GRAD_VAL)
+    and at mimic's with 16 classes, as the path calls it (one-hot labels,
+    weights 1, l2 0): held against its plain version, repeated bit for bit,
+    one launch a call; timed beside the plain version, one torch.sum over
+    the same rows (contiguous, as a yardstick) and its bound, with the host's
+    cost a call and the plan, and the kernel and the torch.sum after a clean
+    L2 flush (read, not written). Then the many-rows grid forced to CTAs of
+    at least m rows for each m of LR_GRAD_MIN_ROWS (m = 1: gather_plan's
+    grid, at most two CTAs an SM and one a row, the grid lr_grad takes),
+    each held and timed: fewer CTAs write fewer partials but chain more
+    rows."""
+    from repro_torch.kernels import LAUNCHES, common, lr_grad
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    sink = torch.empty((), device=dev)
+    for name, n, d, c in LR_GRAD_VAL:
+        Xa = torch.cat([torch.randn(n, d - 1, generator=g, device=dev),
+                        torch.ones(n, 1, device=dev)], dim=1)
+        Y = torch.nn.functional.one_hot(torch.randint(0, c, (n,), generator=g, device=dev),
+                                        c).float()
+        w = 0.01 * torch.randn(c, d, generator=g, device=dev)
+        gw = torch.ones(n, device=dev)
+        kern = lambda a=(w, Xa, Y, gw, 0.0): lr_grad.lr_grad(*a)  # noqa: E731
+        ref = lr_grad.lr_grad_plain(w, Xa, Y, gw, 0.0)
+        limit = TOL_REL * float(ref.abs().max()) + TOL_ABS
+        before = LAUNCHES["lr_grad"]
+        out = kern()
+        launches = LAUNCHES["lr_grad"] - before
+        err = float((out - ref).abs().max())
+        if not (bool(torch.isfinite(out).all()) and err <= limit and torch.equal(out, kern())
+                and launches == 1):
+            fail(f"lr_grad {name}: max|kernel - plain| = {err} (limit {limit}), a bitwise "
+                 f"repeat or {launches} launches a call, not 1")
+        flat = Xa.view(-1)
+        f = 4.0
+        bound_ms, bound_by = bound(f * (n * d + n * c + n + 2 * c * d), 4.0 * n * c * d)
+        few, grid = common.gather_plan(n, d, c, common.n_sms(dev))
+        sum_flat = lambda: torch.sum(flat, 0, out=sink)  # noqa: E731
+        emit({"phase": "lr_grad", "name": name, "shape": [n, d, c], "max_abs_err": err,
+              "tolerance": limit, "bitwise_repeat": True, "launches_per_call": launches,
+              "kernel_ms": time_ms(torch, kern), "plain_ms": time_ms(
+                  torch, lambda a=(w, Xa, Y, gw, 0.0): lr_grad.lr_grad_plain(*a)),
+              "contiguous_sum_ms": time_ms(torch, sum_flat),
+              "kernel_ms_clean_l2": time_ms(torch, kern, clean=True),
+              "contiguous_sum_ms_clean_l2": time_ms(torch, sum_flat, clean=True),
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "host_us_per_call": host_us(torch, kern), "host_us_per_call_min":
+              host_us_min(torch, kern), "plan": {"few": few, "grid": grid},
+              "card": card_line})
+        plan = common.gather_plan
+        try:
+            for m in LR_GRAD_MIN_ROWS:
+                forced = min(grid, max(1, n // m))
+                common.gather_plan = lambda *_, k=forced: (False, k)
+                out = kern()
+                err = float((out - ref).abs().max())
+                if not (err <= limit and torch.equal(out, kern())):
+                    fail(f"lr_grad {name} on a grid of {forced}: max|kernel - plain| = {err} "
+                         f"(limit {limit}) or no bitwise repeat")
+                emit({"phase": "lr_grad_plan", "name": name, "min_rows": m, "grid": forced,
+                      "partial_mb": forced * c * d * 4 / 1e6, "chosen": forced == grid,
+                      "max_abs_err": err, "kernel_ms": time_ms(torch, kern),
+                      "card": card_line})
+        finally:
+            common.gather_plan = plan
+
+
 def determinism_phase(torch) -> None:
     """sgd_train on the kernels, twice from the same start, then
     deltagrad_replay of its trajectory, twice: each pair equal bit for
@@ -624,9 +736,10 @@ def predicted_launches(ds, cfg) -> dict:
     return {"minibatch_grad": T + ROUNDS * explicit, "replay_correction": ROUNDS * T}
 
 
-def loop_phase(torch, card_line: str, ds, cfg, constructor: str) -> dict:
+def loop_phase(torch, card_line: str, ds, cfg, constructor: str) -> tuple:
     """run_chef(method="infl", selector="increm", constructor) on the mimic
-    shape, backend cuda then reference. Returns the cuda run's launches."""
+    shape, backend cuda then reference. Returns the cuda run's launches and
+    its result."""
     from repro_torch.cleaning import phases
     from repro_torch.core import run_chef
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -706,7 +819,7 @@ def loop_phase(torch, card_line: str, ds, cfg, constructor: str) -> dict:
           "f1_diff": df1, "f1_tol": F1_TOL})
     if df1 > F1_TOL:
         fail(f"{constructor}: final test F1 differs by {df1} > {F1_TOL}")
-    return launches
+    return launches, res_c
 
 
 def checkpoint_phase(torch, ds, cfg) -> None:
@@ -735,6 +848,268 @@ def checkpoint_phase(torch, ds, cfg) -> None:
           "restore_s": t_restore, "checkpoint_bytes": ckpt_bytes, "bitwise_equal": same})
     if len(res.history) != 2 or not all(same.values()):
         fail(f"the restored session does not repeat the uninterrupted one: {same}")
+
+
+def _timed_run(torch, sched) -> tuple:
+    """Run a scheduler to its end, one step at a time, with the host clock
+    around each step (synchronized): (result, wall seconds of each round)."""
+    walls = []
+    while not sched.exhausted:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return sched.result(), walls
+
+
+def _same_result(torch, a, b) -> dict:
+    """Which parts of two ChefResults are equal bit for bit."""
+    return {"rows": torch.equal(a.dataset.cleaned, b.dataset.cleaned),
+            "labels": torch.equal(a.dataset.y_prob, b.dataset.y_prob),
+            "w": torch.equal(a.w, b.w),
+            "f1": [r.f1_val for r in a.history] == [r.f1_val for r in b.history]}
+
+
+def pipelined_phase(torch, card_line: str, ds, cfg, blocking) -> None:
+    """The pipelined loop on the kernels. DeltaGrad-L as loop_phase runs it
+    on `cuda` (`blocking` is that run's result), pipelined with an annotator
+    latency of PIPE_DG_LATENCY s: the same rows, labels and w bit for bit,
+    a speculation every round, and the card's peak memory. Then retrain
+    under strategies 'two' and 'three' with a latency of PIPE_LATENCY s,
+    blocking and pipelined, PIPE_ROUNDS rounds each, each round's wall time
+    on the host clock around step(): pipelined equals blocking bit for bit;
+    under 'two' every round hits and the pipelined mean round is shorter
+    than the blocking one ('three' may miss, and is reported)."""
+    from repro_torch.cleaning import CleaningSession, make_scheduler
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sched = make_scheduler(CleaningSession.initialize(
+        ds, replace(cfg, annotator_latency_s=PIPE_DG_LATENCY)), pipelined=True)
+    res, walls = _timed_run(torch, sched)
+    peak = torch.cuda.max_memory_allocated()
+    same = _same_result(torch, res, blocking)
+    emit({"phase": "pipelined", "constructor": "deltagrad", "latency_s": PIPE_DG_LATENCY,
+          "rounds": len(res.history), "round_wall_s": walls,
+          "t_update_s": [r.t_update for r in res.history],
+          "t_select_s": [r.t_select for r in res.history], "spec_hits": sched.spec_hits,
+          "spec_misses": sched.spec_misses, "bitwise_equal_blocking": same,
+          "memory_before_bytes": base, "peak_memory_bytes": peak, "card": card_line})
+    if not all(same.values()) or sched.spec_hits + sched.spec_misses != ROUNDS:
+        fail(f"pipelined deltagrad: equal to the blocking run {same}, speculations "
+             f"{sched.spec_hits} + {sched.spec_misses}, not {ROUNDS}")
+    for strategy in ("two", "three"):
+        c = replace(cfg, budget=PIPE_ROUNDS * B, strategy=strategy,
+                    annotator_latency_s=PIPE_LATENCY)
+        runs = {}
+        for pipelined in (False, True):
+            sched = make_scheduler(CleaningSession.initialize(ds, c), constructor="retrain",
+                                   pipelined=pipelined)
+            res, walls = _timed_run(torch, sched)
+            runs[pipelined] = (res, walls, sched)
+            emit({"phase": "pipelined", "constructor": "retrain", "strategy": strategy,
+                  "pipelined": pipelined, "latency_s": PIPE_LATENCY,
+                  "rounds": len(res.history), "round_wall_s": walls,
+                  "mean_round_s": sum(walls) / len(walls),
+                  "t_update_s": [r.t_update for r in res.history],
+                  "t_select_s": [r.t_select for r in res.history],
+                  "spec_hits": sched.spec_hits, "spec_misses": sched.spec_misses,
+                  "card": card_line})
+        (res_b, walls_b, _), (res_p, walls_p, sched_p) = runs[False], runs[True]
+        same = _same_result(torch, res_p, res_b)
+        faster = sum(walls_p) < sum(walls_b)
+        emit({"phase": "pipelined_compare", "strategy": strategy, "bitwise_equal": same,
+              "mean_round_s_blocking": sum(walls_b) / len(walls_b),
+              "mean_round_s_pipelined": sum(walls_p) / len(walls_p),
+              "pipelined_faster": faster})
+        if len(res_p.history) != PIPE_ROUNDS or not all(same.values()):
+            fail(f"pipelined retrain under {strategy}: {len(res_p.history)} rounds, equal to "
+                 f"the blocking run {same}")
+        if strategy == "two" and (sched_p.spec_hits != PIPE_ROUNDS or not faster):
+            fail(f"pipelined retrain under 'two': {sched_p.spec_hits} hits of {PIPE_ROUNDS}, "
+                 f"rounds {walls_p} against blocking {walls_b}")
+
+
+def annotator_phase(torch, card_line: str) -> dict:
+    """ModelAnnotator with OLMo-1B at full width (random weights from SEED):
+    one ServeEngine(batch_size=4, max_len=1024, trace_logits=True) on `cuda`
+    annotates ANN_ROUNDS rounds of B rows of Table 3's fact dataset (768
+    features: prompts of 776 tokens) through a blocking RoundScheduler
+    (INFL, Increm-INFL, retrain) with cleaning backend `cuda` (launch counts
+    set to 0 just before, read just after) and then `reference`: the same
+    rows and labels each round, and one flash_attention launch a layer and
+    request, no paged_attention. Then an engine on `reference` under the
+    `cuda` cleaning backend: the same labels, or a parting at a top-2 tie
+    within TIE_MARGIN (after which the runs part). Returns the launches of
+    the first run."""
+    import numpy as np
+
+    from repro_torch.cleaning import CleaningSession, RoundScheduler
+    from repro_torch.cleaning.phases import make_constructor, make_selector
+    from repro_torch.configs import ChefConfig, get_config, paper_dataset_specs
+    from repro_torch.data import make_paper_dataset
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import Model
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.stream import ModelAnnotator
+
+    dev = torch.device("cuda")
+    mcfg = get_config("olmo-1b")
+    model = Model(mcfg, device=dev)
+    params = model.init(SEED)
+    spec = paper_dataset_specs()["fact"]
+    ds = make_paper_dataset("fact")
+    cfg = ChefConfig(n_classes=spec.n_classes, feature_dim=spec.feature_dim, lr=spec.lr,
+                     l2=spec.l2, n_epochs=spec.n_epochs, batch_size=BS,
+                     budget=ANN_ROUNDS * B, round_size=B, backend="cuda")
+
+    def engine(backend):
+        return ServeEngine(model, params, backend=backend, device=dev,
+                           config=ServeConfig(batch_size=4, max_len=ANN_MAX_LEN,
+                                              trace_logits=True))
+
+    def clean(eng, backend):
+        """(per round: {row: label}, per round: {row: first C logits}, wall s)."""
+        annotator = ModelAnnotator(eng)
+        labels, logits = [], []
+        annotate = annotator.annotate
+
+        def recording(session, selection, generator):
+            run = eng.run
+            served = []
+            eng.run = lambda reqs: served.extend(run(reqs)) or served
+            task = annotate(session, selection, generator)
+            eng.run = run
+            rows = selection.idx.tolist()
+            labels.append(dict(zip(rows, task.result().tolist())))
+            logits.append(dict(zip(rows, (r.logits[0][:spec.n_classes] for r in
+                                          sorted(served, key=lambda r: r.uid)))))
+            return task
+
+        annotator.annotate = recording
+        session = CleaningSession.initialize(ds, replace(cfg, backend=backend))
+        sched = RoundScheduler(session, make_selector("infl", "increm"), annotator,
+                               make_constructor("retrain"))
+        t0 = time.perf_counter()
+        res = sched.run()
+        torch.cuda.synchronize()
+        if len(res.history) != ANN_ROUNDS:
+            fail(f"model annotator ({backend}): {len(res.history)} rounds")
+        return labels, logits, time.perf_counter() - t0, dict(eng.stats)
+
+    eng = engine("cuda")  # the kernels are loaded: the serving phases ran them
+    reset_launches()
+    labels_c, logits_c, wall_c, stats = clean(eng, "cuda")
+    launches = dict(LAUNCHES)
+    labels_r, _, wall_r, _ = clean(eng, "reference")
+    requests = ANN_ROUNDS * B
+    want = {"flash_attention": mcfg.n_layers * requests, "paged_attention": 0}
+    got = {k: launches[k] for k in want}
+    emit({"phase": "model_annotator", "arch": mcfg.name, "dataset": "fact",
+          "prompt_tokens": 8 + spec.feature_dim, "rounds": ANN_ROUNDS, "requests": requests,
+          "wall_s_cuda": wall_c, "wall_s_reference": wall_r, "engine_stats": stats,
+          "launches": launches, "predicted": want, "same_labels": labels_c == labels_r,
+          "card": card_line})
+    if labels_c != labels_r:
+        fail(f"model annotator: cleaning backends cuda and reference labelled "
+             f"{labels_c} and {labels_r}")
+    if got != want:
+        fail(f"model annotator: launched {got}, one prefill a request predicts {want}")
+    labels_e, logits_e, _, _ = clean(engine("reference"), "cuda")
+    parted = None
+    for k, (a, b) in enumerate(zip(labels_c, labels_e)):
+        if a == b:
+            continue
+        for row in a.keys() & b.keys():
+            if a[row] != b[row]:
+                top2 = np.sort(logits_e[k][row])[-2:]
+                if float(top2[1] - top2[0]) > TIE_MARGIN:
+                    fail(f"model annotator: engines cuda and reference part at round {k} "
+                         f"row {row}, no top-2 tie ({top2})")
+        parted = k
+        break
+    compared = len(labels_c) if parted is None else parted  # rounds on the same rows
+    emit({"phase": "model_annotator_engines", "same_labels": parted is None,
+          "parted_at_round": parted, "tie_margin": TIE_MARGIN,
+          "max_label_logit_diff": max((float(np.abs(logits_c[k][row] - logits_e[k][row]).max())
+                                       for k in range(compared) for row in logits_c[k]),
+                                      default=0.0), "card": card_line})
+    return launches
+
+
+def service_phase(torch, card_line: str) -> None:
+    """CleaningService with two workers on the card over Table 3's twitter
+    dataset, two jobs of SERVICE_ROUNDS rounds: Increm-INFL with DeltaGrad-L
+    (checkpointed) and full INFL with retrain. The first is cancelled after
+    its first committed round (its worker held at that round's end until
+    the cancel is in), ends cancelled, and is submitted again with
+    resume=True. Each result must equal a direct make_scheduler(...).run()
+    bit for bit, and no job may end failed."""
+    import threading
+
+    from repro_torch.cleaning import CleaningService, make_scheduler, prepare_session
+    from repro_torch.cleaning import scheduler as scheduler_mod
+    from repro_torch.configs import ChefConfig, paper_dataset_specs
+    from repro_torch.core.backend import Backend
+    from repro_torch.data import make_paper_dataset
+
+    spec = paper_dataset_specs()["twitter"]
+    ds = make_paper_dataset("twitter")
+    cfg = ChefConfig(n_classes=spec.n_classes, feature_dim=spec.feature_dim, lr=spec.lr,
+                     l2=spec.l2, n_epochs=spec.n_epochs, batch_size=BS,
+                     budget=SERVICE_ROUNDS * B, round_size=B, backend="cuda")
+    jobs = {"dg": ("increm", "deltagrad"), "retrain": ("full", "retrain")}
+    direct = {}
+    for name, (selector, constructor) in jobs.items():
+        session = prepare_session(ds, cfg, backend=Backend("cuda"), selector=selector,
+                                  constructor=constructor)
+        direct[name] = make_scheduler(session, selector=selector,
+                                      constructor=constructor).run()
+    step, held, release = scheduler_mod.RoundScheduler.step, threading.Event(), threading.Event()
+
+    def holding_step(self):
+        record = step(self)
+        if self.ckpt is not None and self.session.round == 1 and not held.is_set():
+            held.set()  # the checkpointed job's first round is committed...
+            release.wait(600)  # ...and its worker waits here for the cancel
+        return record
+
+    scheduler_mod.RoundScheduler.step = holding_step
+    t0 = time.perf_counter()
+    svc = CleaningService(workers=2)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chef_service_") as ckpt_dir:
+            ids = {name: svc.submit(ds, cfg, selector=sel, constructor=con,
+                                    ckpt_dir=ckpt_dir if name == "dg" else None)
+                   for name, (sel, con) in jobs.items()}
+            if not held.wait(600):
+                fail("service: the checkpointed job committed no round")
+            cancelled = svc.cancel(ids["dg"])
+            release.set()
+            svc.join()
+            info = svc.poll(ids["dg"])
+            ids["dg_resumed"] = svc.submit(ds, cfg, selector="increm", constructor="deltagrad",
+                                           ckpt_dir=ckpt_dir, resume=True)
+            results = {name: svc.result(ids[name], timeout=600)
+                       for name in ("retrain", "dg_resumed")}
+    finally:
+        scheduler_mod.RoundScheduler.step = step
+        svc.shutdown()
+    wall = time.perf_counter() - t0
+    states = {i.job_id: i.state for i in svc.jobs()}
+    same = {"retrain": _same_result(torch, results["retrain"], direct["retrain"]),
+            "dg_resumed": _same_result(torch, results["dg_resumed"], direct["dg"])}
+    emit({"phase": "service", "dataset": "twitter", "workers": 2, "jobs": states,
+          "cancelled": cancelled, "cancelled_after_rounds": info.rounds_done,
+          "bitwise_equal_direct": same, "wall_s": wall, "card": card_line})
+    if "failed" in states.values():
+        fail(f"service: a job failed: {[i for i in svc.jobs() if i.state == 'failed']}")
+    if not (cancelled and info.state == "cancelled" and info.rounds_done == 1):
+        fail(f"service: the cancelled job ended {info}")
+    if not all(all(v.values()) for v in same.values()):
+        fail(f"service: results differ from the direct runs: {same}")
 
 
 def _device_profile(torch, fn, top: int = 12) -> dict:
@@ -1629,10 +2004,10 @@ def _compare_streams(np, what: str, done, done_ref, max_new: int,
 
 
 def starcoder_phase(torch, card_line: str) -> dict:
-    """The sliding-window serving path at StarCoder2-3B's full width (30
-    layers, d_model 3072, 24 query heads over 2 kv heads of 128, window
-    4096), float32, random weights from SEED: ServeEngine(batch_size=2,
-    page_size=8) at repro's other defaults (prefix sharing and page
+    """The sliding-window serving path at StarCoder2-3B's full width
+    (d_model 3072, 24 query heads over 2 kv heads of 128, window 4096; the
+    first SC_LAYERS of its 30 layers), float32, random weights from SEED:
+    ServeEngine(batch_size=2, page_size=8) at repro's other defaults (prefix sharing and page
     retirement on, max_len from the requests) serves SC_LENGTHS (two prompts
     past the window, bucket 8192; two of about 300 sharing a 128-token
     prefix, one of them a prefix hit), SC_MAX_NEW greedy tokens each: on
@@ -1655,7 +2030,7 @@ def starcoder_phase(torch, card_line: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()  # the OLMo-1B phase's parameters are gone
     dev = torch.device("cuda")
-    cfg = get_config("starcoder2-3b")
+    cfg = replace(get_config("starcoder2-3b"), n_layers=SC_LAYERS)
     t0 = time.perf_counter()
     model = Model(cfg, device=dev)
     params = model.init(SEED)
@@ -1766,10 +2141,11 @@ def starcoder_phase(torch, card_line: str) -> dict:
 
 
 def recurrent_phase(torch, card_line: str) -> dict:
-    """The ring path at RecurrentGemma-9B's full width (38 layers: 26 RG-LRU
-    blocks and 12 local-attention blocks of 16 query heads over 1 kv head of
-    256, window 2048; d_model 4096, LRU width 4096, vocab 256,000 tied),
-    float32, random weights from SEED (34.3 GB, made on the card):
+    """The ring path at RecurrentGemma-9B's full width (RG-LRU blocks and
+    local-attention blocks of 16 query heads over 1 kv head of 256, window
+    2048; d_model 4096, LRU width 4096, vocab 256,000 tied; the first
+    RG_LAYERS of its 38 layers: 14 RG-LRU and 6 local), float32, random
+    weights from SEED (made on the card):
     ServeEngine(batch_size=RG_BATCH, max_len=RG_MAX_LEN) at cache "auto",
     which resolves to the ring, serves RG_LENGTHS: a wave of two prompts past
     the window (the ring roll runs; the ring of 2048 wraps) and a third that
@@ -1790,7 +2166,7 @@ def recurrent_phase(torch, card_line: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()  # the StarCoder2-3B phase's parameters are gone
     dev = torch.device("cuda")
-    cfg = get_config("recurrentgemma-9b")
+    cfg = replace(get_config("recurrentgemma-9b"), n_layers=RG_LAYERS)
     t0 = time.perf_counter()
     model = Model(cfg, device=dev)
     params = model.init(SEED)
@@ -1934,86 +2310,49 @@ def _near_bth(sel, j: int) -> bool:
 
 
 def _redesign_inputs(torch):
-    """The cases the comparison mode times: lr_hvp at each of
-    HVP_CASES (mimic rows, random weights from SEED), decode_attention at
-    RecurrentGemma-9B's and OLMo-1B's ring decode shapes, and the paged
-    partials, float32 and int8, at OLMo-1B's and StarCoder2-3B's decode
-    shapes. Each name maps to (kernel, plain version, what to pass the
-    kernel)."""
-    from repro_torch.kernels import lr_hvp, ops, paged_attention
-    from repro_torch.models.attention import AttnSpec, ring_valid
+    """The cases the comparison mode times: lr_grad at each shape of
+    LR_GRAD_VAL, as the path calls it (one-hot labels, weights 1, l2 0;
+    inputs from SEED). Each name maps to (kernel, plain version)."""
+    from repro_torch.kernels import lr_grad
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
-    Xa = torch.cat([torch.randn(N, D - 1, generator=g, device=dev),
-                    torch.ones(N, 1, device=dev)], dim=1)
-    gw = 0.8 + 0.2 * torch.rand(N, generator=g, device=dev)
     cases = {}
-    for name, n, c in HVP_CASES:
-        w, v = (0.01 * torch.randn(c, D, generator=g, device=dev) for _ in range(2))
-        args = (w, v, Xa[:n], gw[:n], 0.05)
-        cases[name] = (lambda a=args: lr_hvp.lr_hvp(*a), lambda a=args: lr_hvp.lr_hvp_plain(*a),
-                       args)
-    for name, (B, Hkv, G, Dh, W, pos) in {
-            "decode_attention": (RG_BATCH, 1, 16, 256, RG_WINDOW, RG_DECODE_POS),
-            "decode_attention/olmo_ring": (4, 16, 1, 128, 256, 300)}.items():
-        q = torch.randn(B, 1, Hkv * G, Dh, generator=g, device=dev)
-        k, v = (torch.randn(B, W, Hkv, Dh, generator=g, device=dev) for _ in range(2))
-        spec = AttnSpec(True, W if name == "decode_attention" else 0, 0.0)
-        a = (q, k, v, ring_valid(torch.tensor(pos, device=dev), W, spec), spec)
-        cases[name] = (lambda a=a: ops.decode_attention(*a),
-                       lambda a=a: ops.decode_attention_ref(*a), a)
-    n_sc = -(-(max(SC_LENGTHS) + SC_MAX_NEW) // SC_PAGE)
-    P, Dh = SC_PAGE, 128  # both configurations' page size and head width
-    pa = paged_attention
-    for name, (B, Hkv, G, n_table, n_phys, window) in {
-            "paged_attention": (4, 16, 1, 32, 129, 0),
-            "paged_attention/starcoder2": (2, 2, 12, n_sc, 1 + 2 * n_sc, 4096)}.items():
-        q = torch.randn(B, Hkv, G, Dh, generator=g, device=dev)
-        kv = [torch.randn(n_phys, P, Hkv, Dh, generator=g, device=dev) for _ in range(2)]
-        table, pos = (_starcoder_decode_table(torch, g, dev, n_table, n_phys, window) if window
-                      else _olmo_decode_table(torch, g, dev, n_table, n_phys))
-        a = (q, *kv, table, pos)
-        cases[name] = (lambda a=a, w=window: pa.paged_attention_partials(*a, window=w),
-                       lambda a=a, w=window: pa.paged_attention_partials_reference(*a, window=w),
-                       a)
-        a = (q, *_int8_pool(torch, g, n_phys, P, Hkv, Dh, dev), table, pos)
-        cases[name.replace("paged_attention", "paged_attention_quant")] = (
-            lambda a=a, w=window: pa.paged_attention_partials_quant(*a, window=w),
-            lambda a=a, w=window: pa.paged_attention_partials_quant_reference(*a, window=w), a)
+    for name, n, d, c in LR_GRAD_VAL:
+        Xa = torch.cat([torch.randn(n, d - 1, generator=g, device=dev),
+                        torch.ones(n, 1, device=dev)], dim=1)
+        Y = torch.nn.functional.one_hot(torch.randint(0, c, (n,), generator=g, device=dev),
+                                        c).float()
+        a = (0.01 * torch.randn(c, d, generator=g, device=dev), Xa, Y,
+             torch.ones(n, device=dev), 0.0)
+        cases[f"lr_grad/{name}"] = (lambda a=a: lr_grad.lr_grad(*a),
+                                    lambda a=a: lr_grad.lr_grad_plain(*a))
     return cases
 
 
 def redesign_phase(torch, card_line: str, tree: str) -> None:
     """One process of the comparison mode, on the repro_torch it imported
     (this tree's or, with --src, another's): each case of _redesign_inputs
-    held against its plain version (the kernels' tolerance; the paged
-    partials as _partial_pairs pairs them) and repeated bit for bit, then
-    the device time and host enqueue time of each of 20 calls (call_times:
-    a slow device time beside a slow enqueue is the host's) and the host
-    cost (host_us); and lr_grad's digests at tests/test_torch_gpu.py's
+    held against its plain version (the kernels' tolerance) and repeated
+    bit for bit, then the device time and host enqueue time of each of 20
+    calls (call_times: a slow device time beside a slow enqueue is the
+    host's), the host cost (host_us, host_us_min) and lr_grad's launches a
+    call; and lr_grad's digests at tests/test_torch_gpu.py's
     LR_GRAD_SHAPES."""
     import importlib.util
 
-    from repro_torch.kernels import build
+    from repro_torch.kernels import LAUNCHES, build
 
-    # at once, before any timing
-    build.build_all(("lr_hvp", "decode_attention", "lr_grad", "paged_attention"))
-    cases = _redesign_inputs(torch)
-    for name, (kern, plain, _) in cases.items():
-        out, ref = kern(), plain()
-        tuples = isinstance(out, tuple)
-        pairs = _partial_pairs(torch, f"{tree} {name}", out, ref) if tuples else [(out, ref)]
-        err, ok = 0.0, True
-        for x, y in pairs:
-            e = float((x - y).abs().max())
-            limit = TOL_REL * float(y.abs().max()) + TOL_ABS
-            ok = ok and bool(torch.isfinite(x).all()) and e <= limit
-            err = max(err, e)
-        again = kern()
-        if not (ok and all(torch.equal(x, y) for x, y in
-                           (zip(out, again) if tuples else [(out, again)]))):
-            fail(f"{tree} {name}: max|kernel - plain| = {err} past the tolerance or no bitwise "
+    build.build_all(("lr_grad",))  # before any timing
+    for name, (kern, plain) in _redesign_inputs(torch).items():
+        before = LAUNCHES["lr_grad"]
+        out = kern()
+        launches = LAUNCHES["lr_grad"] - before
+        ref = plain()
+        err = float((out - ref).abs().max())
+        limit = TOL_REL * float(ref.abs().max()) + TOL_ABS
+        if not (bool(torch.isfinite(out).all()) and err <= limit and torch.equal(out, kern())):
+            fail(f"{tree} {name}: max|kernel - plain| = {err} past {limit} or no bitwise "
                  "repeat")
         device, host = call_times(torch, kern)
         emit({"phase": "redesign", "tree": tree, "name": name, "max_abs_err": err,
@@ -2021,28 +2360,8 @@ def redesign_phase(torch, card_line: str, tree: str) -> None:
               "kernel_ms_median": sorted(device)[len(device) // 2],
               "kernel_ms_max": max(device), "call_ms": device, "enqueue_ms": host,
               "host_us_per_call": host_us(torch, kern),
-              "host_us_per_call_min": host_us_min(torch, kern), "card": card_line})
-    # the CG solve of a round's t_select (influence_vector on backend cuda:
-    # lr_grad once, lr_hvp each iteration) at the mimic widths, host clock
-    # around each call, synchronized
-    from repro_torch.core.backend import Backend
-    from repro_torch.core.influence import influence_vector
-
-    w, _, Xa, gw, l2 = cases["lr_hvp"][2]
-    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    Xa_val = torch.cat([torch.randn(N_VAL, D - 1, generator=g, device="cuda"),
-                        torch.ones(N_VAL, 1, device="cuda")], dim=1)
-    Y_val = torch.nn.functional.one_hot(
-        torch.randint(0, C, (N_VAL,), generator=g, device="cuda"), C).float()
-    walls = []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, stats = influence_vector(w, Xa_val, Y_val, Xa, gw, l2, backend=Backend("cuda"))
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    emit({"phase": "redesign_cg", "tree": tree, "cg_iters": int(stats["iters"]),
-          "wall_ms": walls, "wall_ms_median": sorted(walls)[3], "card": card_line})
+              "host_us_per_call_min": host_us_min(torch, kern), "counted_launches": launches,
+              "card": card_line})
     spec = importlib.util.spec_from_file_location("gpu_tests", ROOT / "tests/test_torch_gpu.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -2051,11 +2370,11 @@ def redesign_phase(torch, card_line: str, tree: str) -> None:
 
 
 def compare_mode(parent: str) -> None:
-    """The redesigned kernels against the tree at `parent` (a checkout of
-    the parent commit) on this card: COMPARE_PROCS fresh processes a side in
+    """The redesigned kernel against the tree at `parent` (a checkout of the
+    parent commit) on this card: COMPARE_PROCS fresh processes a side in
     turns (parent, change, change, parent, ...), each running
-    redesign_phase; then each case's times side by side (and the CG
-    solve's), and lr_grad's digests, which must be equal on both trees."""
+    redesign_phase; then each case's times side by side, and each tree's
+    lr_grad digests (one set a tree: each repeats bit for bit)."""
     import statistics
 
     runs: dict = {}
@@ -2071,7 +2390,7 @@ def compare_mode(parent: str) -> None:
         for line in proc.stdout.splitlines():
             if line.startswith("{"):
                 rec = json.loads(line)
-                if rec.get("phase") in ("redesign", "redesign_cg", "lr_grad_digests"):
+                if rec.get("phase") in ("redesign", "lr_grad_digests"):
                     print(line, flush=True)
                     runs.setdefault(tree, []).append(rec)
     summary = {}
@@ -2085,22 +2404,19 @@ def compare_mode(parent: str) -> None:
                 entry["ms_median_of_calls"].append(rec["kernel_ms_median"])
                 entry["ms_max_of_calls"].append(rec["kernel_ms_max"])
                 entry["host_us"].append(rec["host_us_per_call"])
-                entry["host_us_min"].append(rec.get("host_us_per_call_min"))
+                entry["host_us_min"].append(rec["host_us_per_call_min"])
     for name, trees in summary.items():
         for entry in trees.values():
             for key in ("ms", "ms_median_of_calls", "ms_max_of_calls", "host_us", "host_us_min"):
                 entry[f"{key}_median"] = statistics.median(entry[key])
     digests = {tree: [r["digests"] for r in recs if r["phase"] == "lr_grad_digests"]
                for tree, recs in runs.items()}
-    cg = {tree: [r for r in recs if r["phase"] == "redesign_cg"] for tree, recs in runs.items()}
-    summary["influence_vector (CG)"] = {
-        tree: {"wall_ms_medians": [r["wall_ms_median"] for r in recs],
-               "cg_iters": [r["cg_iters"] for r in recs]} for tree, recs in cg.items()}
-    same = all(d == digests["parent"][0] for ds in digests.values() for d in ds)
+    repeat = all(d == ds[0] for ds in digests.values() for d in ds)
     emit({"phase": "compare_summary", "order": order, "cases": summary,
-          "lr_grad_digests": digests["parent"][0], "lr_grad_equal": same})
-    if not same:
-        fail(f"lr_grad's results differ between the trees: {digests}")
+          "lr_grad_digests": {tree: ds[0] for tree, ds in digests.items()},
+          "lr_grad_repeats": repeat})
+    if not repeat:
+        fail(f"lr_grad's results differ between processes of one tree: {digests}")
 
 
 def main() -> None:
@@ -2124,22 +2440,37 @@ def main() -> None:
     card_line = card()
     emit({"phase": "start", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card_line})
-    build_phase()
-    sass_phase()
-    kern = kernel_phase(torch, card_line)
-    kern.update(attention_kernel_phase(torch, card_line))
-    kern.update(windowed_kernel_phase(torch, card_line))
-    kern.update(ring_int8_kernel_phase(torch, card_line))
-    serve_launches, int8_launches = serving_phase(torch, card_line)
-    sparse_launches = block_sparse_phase(torch, card_line)
-    sc_launches = starcoder_phase(torch, card_line)
-    rg_launches = recurrent_phase(torch, card_line)
-    determinism_phase(torch)
-    ds, cfg = dataset_phase(torch)
-    loop_phase(torch, card_line, ds, cfg, "retrain")
-    launches = loop_phase(torch, card_line, ds, cfg, "deltagrad")
-    checkpoint_phase(torch, ds, cfg)
-    trace_phase(torch, card_line, ds, cfg)
+    seconds: dict = {}  # each phase's wall time on the host clock
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", build_phase)
+    timed("sass", sass_phase)
+    kern = timed("kernel", kernel_phase, torch, card_line)
+    timed("lr_grad", lr_grad_phase, torch, card_line)
+    kern.update(timed("attention_kernel", attention_kernel_phase, torch, card_line))
+    kern.update(timed("windowed_kernel", windowed_kernel_phase, torch, card_line))
+    kern.update(timed("ring_int8_kernel", ring_int8_kernel_phase, torch, card_line))
+    serve_launches, int8_launches = timed("serving", serving_phase, torch, card_line)
+    sparse_launches = timed("block_sparse", block_sparse_phase, torch, card_line)
+    sc_launches = timed("starcoder", starcoder_phase, torch, card_line)
+    rg_launches = timed("recurrent", recurrent_phase, torch, card_line)
+    timed("determinism", determinism_phase, torch)
+    ds, cfg = timed("dataset", dataset_phase, torch)
+    timed("loop_retrain", loop_phase, torch, card_line, ds, cfg, "retrain")
+    launches, dg_blocking = timed("loop_deltagrad", loop_phase, torch, card_line, ds, cfg,
+                                  "deltagrad")
+    timed("checkpoint", checkpoint_phase, torch, ds, cfg)
+    timed("trace", trace_phase, torch, card_line, ds, cfg)
+    timed("pipelined", pipelined_phase, torch, card_line, ds, cfg, dg_blocking)
+    del ds, dg_blocking
+    timed("annotator", annotator_phase, torch, card_line)
+    timed("service", service_phase, torch, card_line)
+    emit({"phase": "timing", "seconds": seconds, "total_s": sum(seconds.values())})
     # each kernel's launches from the run of the path it serves
     launches.update({"flash_attention": serve_launches["flash_attention"],
                      "paged_attention": serve_launches["paged_attention"],

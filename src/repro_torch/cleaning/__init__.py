@@ -1,16 +1,20 @@
-"""repro_torch.cleaning — the label-cleaning loop as session, phases and a
-blocking scheduler (module for module with `repro.cleaning`).
+"""repro_torch.cleaning — the label-cleaning loop as session, phases, a
+scheduler and a service (module for module with `repro.cleaning`).
 
   session    — `CleaningSession`: round counter, budget ledger, label state,
                DeltaGrad trajectory, Increm-INFL provenance, per-round
                generators; checkpoint save/restore.
-  phases     — `InflSelector`, `BaselineSelector`, `SimulatedAnnotator`,
+  phases     — `InflSelector`, `BaselineSelector`, `SimulatedAnnotator`
+               (with `predict`, what the pipelined scheduler speculates on),
                `DeltaGradConstructor`, `RetrainConstructor`.
-  scheduler  — the blocking `RoundScheduler` (with checkpoint hooks) and the
+  scheduler  — `RoundScheduler`, blocking or pipelined (speculating on
+               INFL's suggested labels inside the annotation latency,
+               checked against the votes), with checkpoint hooks, and the
                early-termination policies.
+  service    — `CleaningService`: submit / poll / cancel many sessions over
+               one shared `Backend` and device.
 
-The service, the supervisor and pipelined speculation wait until they are
-ported (ROADMAP.md).
+The supervisor waits until it is ported (ROADMAP.md).
 """
 from repro_torch.cleaning.phases import (
     AnnotationTask,
@@ -36,12 +40,14 @@ from repro_torch.cleaning.scheduler import (
     make_scheduler,
     make_termination,
 )
+from repro_torch.cleaning.service import CleaningService, JobInfo, prepare_session
 from repro_torch.cleaning.session import BudgetLedger, CleaningSession, round_generators
 
 __all__ = [
-    "AnnotationTask", "Annotator", "BaselineSelector", "BudgetLedger", "CleaningSession",
-    "Constructor", "ConstructorResult", "DeltaGradConstructor", "InflSelector",
-    "MarginalF1PerLabel", "Patience", "RetrainConstructor", "RoundScheduler", "RoundSelection",
-    "Selector", "SimulatedAnnotator", "TargetF1", "TerminationPolicy", "make_constructor",
-    "make_scheduler", "make_selector", "make_termination", "round_generators",
+    "AnnotationTask", "Annotator", "BaselineSelector", "BudgetLedger", "CleaningService",
+    "CleaningSession", "Constructor", "ConstructorResult", "DeltaGradConstructor",
+    "InflSelector", "JobInfo", "MarginalF1PerLabel", "Patience", "RetrainConstructor",
+    "RoundScheduler", "RoundSelection", "Selector", "SimulatedAnnotator", "TargetF1",
+    "TerminationPolicy", "make_constructor", "make_scheduler", "make_selector",
+    "make_termination", "prepare_session", "round_generators",
 ]

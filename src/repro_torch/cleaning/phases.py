@@ -5,15 +5,16 @@
                 through the session's `Backend` (reference | cuda).
   Annotator   — the annotation phase. `SimulatedAnnotator` computes the voted
                 labels deterministically and hands back an `AnnotationTask`
-                whose result becomes available after the configured human
-                latency.
+                whose result becomes available only after the configured
+                human latency, the window the pipelined scheduler overlaps
+                with compute. `predict()` gives what is known before the
+                humans answer (INFL's suggested labels), which the
+                scheduler speculates on.
   Constructor — the model-constructor phase: DeltaGrad-L replay or full
                 retrain. Constructors are pure with respect to the session
                 (they return a `ConstructorResult`; only
-                `session.apply_round` commits).
-
-The annotator's `predict`, which the JAX package's pipelined scheduler
-speculates on, waits until pipelining is ported (ROADMAP.md).
+                `session.apply_round` commits), which makes speculating
+                safe.
 """
 from __future__ import annotations
 
@@ -159,6 +160,8 @@ class AnnotationTask:
 class Annotator(Protocol):
     def annotate(self, session, selection: RoundSelection, generator) -> AnnotationTask: ...
 
+    def predict(self, session, selection: RoundSelection) -> Optional[torch.Tensor]: ...
+
 
 @dataclass(frozen=True)
 class SimulatedAnnotator:
@@ -168,18 +171,28 @@ class SimulatedAnnotator:
     strategy: str = "three"
     latency_s: float = 0.0
 
-    def annotate(self, session, selection: RoundSelection, generator) -> AnnotationTask:
-        """Start the vote on the selected rows: the humans alone (strategy
-        one) when the selector suggests no labels."""
-        ds = session.ds
-        humans = ds.human_labels[selection.idx]
+    def _vote_inputs(self, session, selection: RoundSelection):
+        """(human labels, suggested labels, strategy) of the selected rows:
+        the humans alone (strategy one) when the selector suggests none."""
+        humans = session.ds.human_labels[selection.idx]
         if selection.suggested is not None:
-            suggested, strategy = selection.suggested[selection.idx], self.strategy
-        else:
-            suggested, strategy = torch.zeros_like(selection.idx), "one"
-        labels = annotation.cleaned_labels(strategy, humans, suggested, ds.n_classes,
+            return humans, selection.suggested[selection.idx], self.strategy
+        return humans, torch.zeros_like(selection.idx), "one"
+
+    def annotate(self, session, selection: RoundSelection, generator) -> AnnotationTask:
+        """Start the vote on the selected rows."""
+        humans, suggested, strategy = self._vote_inputs(session, selection)
+        labels = annotation.cleaned_labels(strategy, humans, suggested, session.ds.n_classes,
                                            generator=generator)
         return AnnotationTask(labels, self.latency_s)
+
+    def predict(self, session, selection: RoundSelection) -> Optional[torch.Tensor]:
+        """Best guess at the voted labels from what is known before the vote:
+        INFL's suggestions (None where the selector suggests none). Exact
+        under strategy 'two', where the suggestions are the labels."""
+        if selection.suggested is None:
+            return None
+        return selection.suggested[selection.idx].to(torch.int64)
 
 
 @runtime_checkable

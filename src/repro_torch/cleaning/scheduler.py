@@ -1,18 +1,30 @@
-"""The blocking round scheduler and the early-termination policies.
+"""The round scheduler, blocking or pipelined, and the early-termination
+policies.
 
-Each round runs select -> annotate -> construct, then commits:
+The blocking loop runs select -> annotate -> construct, then commits, and
+pays
 
     t_round = t_select + latency + t_update
+
+per round (latency: the human annotation turnaround). The pipelined loop
+overlaps the latency with speculation: while round k's annotators are still
+voting it
+  1. runs the model constructor on the PREDICTED labels (INFL's suggested
+     labels: exactly the votes under strategy 'two', a likely guess under
+     'one' and 'three'), and
+  2. prefetches round k+1's selection against that speculative model,
+then checks: if the votes equal the prediction the speculative round is
+adopted whole (t_round about max(latency, t_update + t_select)); if not, the
+speculation is dropped and the constructor reruns on the real votes.
+Speculation is checked against the votes and the constructors repeat bit
+for bit, so the pipelined loop gives the blocking loop's selections, labels
+and weights bit for bit: timing moves, results do not.
 
 With `ckpt_dir` the session checkpoints every `ckpt_every` committed rounds
 through `repro_torch.ckpt.CheckpointManager` (async writes overlap the next
 round), so a killed job resumes bit for bit (`CleaningSession.restore`).
-
-Not ported yet (ROADMAP.md): the JAX package's pipelined speculation
-(overlapping the annotation latency with a speculative update and the next
-round's scoring) — `make_scheduler(pipelined=True)` refuses it — and its
-`Heartbeat` and `retry_step` hooks, which wait for the port of
-`dist/fault.py`.
+The JAX package's `Heartbeat` and `retry_step` hooks wait for the port of
+`dist/fault.py` (ROADMAP.md).
 
 Early termination is first-class: `TargetF1`, `Patience`, and
 `MarginalF1PerLabel` policy objects (composable; any firing stops the run).
@@ -101,6 +113,19 @@ def make_termination(cfg) -> tuple:
     return tuple(policies)
 
 
+class _Prefetch(NamedTuple):
+    round: int
+    selection: RoundSelection
+    t_select: float  # compute time spent (hidden inside the latency)
+
+
+class _Speculation(NamedTuple):
+    labels: torch.Tensor
+    result: ConstructorResult
+    t_update: float
+    prefetch: Optional[_Prefetch]
+
+
 class _RoundOutcome(NamedTuple):
     """Everything round k computed, before any of it is committed."""
 
@@ -109,22 +134,28 @@ class _RoundOutcome(NamedTuple):
     t_select: float
     result: ConstructorResult
     t_update: float
+    spec: Optional[str]  # "hit" | "miss" | None (not pipelined / no prediction)
+    prefetch: Optional[_Prefetch]
 
 
 class RoundScheduler:
-    """Drives one `CleaningSession` through blocking select -> annotate ->
-    construct rounds."""
+    """Drives one `CleaningSession` through select -> annotate -> construct
+    rounds, blocking or pipelined (see the module docstring)."""
 
     def __init__(self, session: CleaningSession, selector: Selector, annotator: Annotator,
                  constructor: Constructor, *, termination: Sequence[TerminationPolicy] = (),
-                 ckpt_dir=None, ckpt_every: int = 1, ckpt_keep: int = 3,
-                 verbose: bool = False):
+                 pipelined: bool = False, ckpt_dir=None, ckpt_every: int = 1,
+                 ckpt_keep: int = 3, verbose: bool = False):
         self.session = session
         self.selector = selector
         self.annotator = annotator
         self.constructor = constructor
         self.termination = tuple(termination)
+        self.pipelined = pipelined
         self.verbose = verbose
+        self.spec_hits = 0
+        self.spec_misses = 0
+        self._prefetch: Optional[_Prefetch] = None
         self.ckpt = None
         self.ckpt_every = ckpt_every
         if ckpt_dir is not None:
@@ -163,26 +194,68 @@ class RoundScheduler:
 
     def _compute_round(self) -> _RoundOutcome:
         """Select / annotate / construct for the current round. Mutates no
-        scheduler or session state."""
+        scheduler or session state (`self._prefetch` is only read)."""
         s = self.session
         k = s.round
         g_sel, g_vote = s.round_keys(k)
-        t0 = time.perf_counter()
-        selection = self.selector.select(s, s.eligible(), g_sel)
-        block_until_ready(selection.idx)
-        t_select = time.perf_counter() - t0
+        pf = self._prefetch  # selected inside round k-1's wait
+        if pf is not None and pf.round == k:
+            selection, t_select = pf.selection, pf.t_select
+        else:
+            t0 = time.perf_counter()
+            selection = self.selector.select(s, s.eligible(), g_sel)
+            block_until_ready(selection.idx)
+            t_select = time.perf_counter() - t0
 
-        labels = self.annotator.annotate(s, selection, g_vote).result()
+        task = self.annotator.annotate(s, selection, g_vote)
+        spec: Optional[_Speculation] = None
+        if self.pipelined and not task.ready():
+            pred = self.annotator.predict(s, selection)
+            if pred is not None:
+                spec = self._speculate(k, selection, pred)
+        labels = task.result()
 
+        # adopt the speculation only where the votes equal its labels (a
+        # host sync)
+        if spec is not None and torch.equal(labels, spec.labels):
+            return _RoundOutcome(k, selection, t_select, spec.result, spec.t_update, "hit",
+                                 spec.prefetch)
         t1 = time.perf_counter()
         result = self.constructor.construct(s, selection.idx, labels)
         block_until_ready(result.w)
         t_update = time.perf_counter() - t1
-        return _RoundOutcome(k, selection, t_select, result, t_update)
+        return _RoundOutcome(k, selection, t_select, result, t_update,
+                             "miss" if spec is not None else None, None)
+
+    def _speculate(self, k: int, selection: RoundSelection, pred) -> _Speculation:
+        """Run the constructor and the next round's selection on the
+        predicted labels while the annotators are still voting. Changes
+        nothing of the session: the selection runs on `session.child`, with
+        round k+1's generators made afresh by `round_keys`."""
+        s = self.session
+        t1 = time.perf_counter()
+        result = self.constructor.construct(s, selection.idx, pred)
+        block_until_ready(result.w)
+        t_update = time.perf_counter() - t1
+        prefetch = None
+        # prefetch round k+1's selection unless the budget already ends the run
+        if s.ledger.remaining >= 2 * s.cfg.round_size:
+            child = s.child(result.ds, result.w, result.traj, result.sched)
+            g_sel_next, _ = s.round_keys(k + 1)
+            t0 = time.perf_counter()
+            sel_next = self.selector.select(child, child.eligible(), g_sel_next)
+            block_until_ready(sel_next.idx)
+            prefetch = _Prefetch(k + 1, sel_next, time.perf_counter() - t0)
+        return _Speculation(pred, result, t_update, prefetch)
 
     def _commit(self, o: _RoundOutcome) -> RoundRecord:
         """Apply one computed round: the only state-mutation point."""
         s = self.session
+        self._prefetch = o.prefetch
+        if o.spec == "hit":
+            self.spec_hits += 1
+        elif o.spec == "miss":
+            self.spec_misses += 1
         selection, result = o.selection, o.result
         match = (float(torch.mean((selection.suggested[selection.idx]
                                    == s.ds.y_true[selection.idx]).to(torch.float32)))
@@ -207,9 +280,8 @@ def make_scheduler(session: CleaningSession, *, method: str = "infl", selector: 
                    **kw) -> RoundScheduler:
     """`run_chef`-vocabulary convenience constructor. `kw` goes to
     `RoundScheduler` (ckpt_dir, ckpt_every, ckpt_keep, verbose)."""
-    if pipelined:
-        raise NotImplementedError("pipelined speculation is not ported yet; use pipelined=False")
     cfg = session.cfg
     return RoundScheduler(session, make_selector(method, selector),
                           SimulatedAnnotator(cfg.strategy, cfg.annotator_latency_s),
-                          make_constructor(constructor), termination=make_termination(cfg), **kw)
+                          make_constructor(constructor), termination=make_termination(cfg),
+                          pipelined=pipelined, **kw)

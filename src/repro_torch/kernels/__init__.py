@@ -24,12 +24,13 @@ and the serving paths'.
 `ops` holds the model-layout adapters of the attention kernels.
 
 Each module holds the kernel's wrapper, its plain PyTorch version and a note
-on what it replaces and what bounds it. lr_hvp, minibatch_grad and
+on what it replaces and what bounds it. lr_grad, lr_hvp, minibatch_grad and
 replay_correction share `csrc/lr_gather.cuh` (one launch a call, each row
-read once); lr_grad runs `csrc/lr_rowcol.cuh`'s three passes; the flash,
-banded, block-sparse and chunked kernels share `csrc/attn_common.cuh`. `build` compiles `csrc/` with nvcc;
-`common.LAUNCHES` counts each kernel's launches (`build.KERNELS` names each
-kernel's source).
+read once); the flash, banded, block-sparse and chunked kernels share
+`csrc/attn_common.cuh`. `build` compiles `csrc/` with nvcc at first use,
+once even where threads meet there; `common.LAUNCHES` counts each kernel's
+launches, exactly under threads (`build.KERNELS` names each kernel's
+source).
 """
 from repro_torch.kernels.common import LAUNCHES, reset_launches
 

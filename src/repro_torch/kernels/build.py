@@ -7,6 +7,10 @@ at first use. Their output goes to `_build/<hash>/` beside this file, where
 the hash covers every file in `csrc/` and the compiler flags, so an edited
 source builds anew. `nvcc -Xptxas -v` reports each kernel's registers,
 shared memory and spills; the report is kept as `lib<name>.log`.
+
+First use is safe across threads: one lock covers the build and the load,
+so two threads whose first calls to a kernel meet build it once, and each
+temporary library is named by process and thread.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
@@ -35,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[str, ctypes._CFuncPtr] = {}
+_LOCK = threading.RLock()  # builds, loads and the two tables above
 
 
 def source_hash() -> str:
@@ -68,43 +74,48 @@ def build_all(names=SOURCES) -> dict[str, str]:
     """Build the libraries of `names` that are not built yet, all compilers
     running at once. Returns each library's `-Xptxas -v` report; raises with
     the compiler's output if any build fails."""
-    out_dir = build_dir()
-    missing = [name for name in names if not (out_dir / f"lib{name}.so").exists()]
-    if missing:
-        nvcc()  # raises before anything is written where there is no toolkit
-        out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in missing:
-        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-        procs[name] = (tmp, subprocess.Popen(nvcc_command(name, tmp), stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
-            continue
-        (out_dir / f"lib{name}.log").write_text(log)
-        os.replace(tmp, out_dir / f"lib{name}.so")  # atomic: readers never see half a file
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return {name: (out_dir / f"lib{name}.log").read_text() for name in names}
+    with _LOCK:
+        out_dir = build_dir()
+        missing = [name for name in names if not (out_dir / f"lib{name}.so").exists()]
+        if missing:
+            nvcc()  # raises before anything is written where there is no toolkit
+            out_dir.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in missing:
+            tmp = out_dir / f"lib{name}.so.{os.getpid()}.{threading.get_ident()}.tmp"
+            procs[name] = (tmp, subprocess.Popen(nvcc_command(name, tmp), stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+                continue
+            (out_dir / f"lib{name}.log").write_text(log)
+            os.replace(tmp, out_dir / f"lib{name}.so")  # atomic: readers never see half a file
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        return {name: (out_dir / f"lib{name}.log").read_text() for name in names}
 
 
 def entry(kernel: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of kernel `kernel`'s library (built at first
     use), with its argument types declared and an `int` (a cudaError_t)
     result."""
+    fn = _ENTRIES.get(symbol)
+    if fn is not None:
+        return fn
     lib = KERNELS[kernel]
-    if symbol not in _ENTRIES:
-        if lib not in _LIBS:
-            build_all((lib,))
-            _LIBS[lib] = ctypes.CDLL(str(build_dir() / f"lib{lib}.so"))
-        fn = getattr(_LIBS[lib], symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _ENTRIES[symbol] = fn
-    return _ENTRIES[symbol]
+    with _LOCK:
+        if symbol not in _ENTRIES:
+            if lib not in _LIBS:
+                build_all((lib,))
+                _LIBS[lib] = ctypes.CDLL(str(build_dir() / f"lib{lib}.so"))
+            fn = getattr(_LIBS[lib], symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _ENTRIES[symbol] = fn
+        return _ENTRIES[symbol]
 
 
 def error_string(kernel: str, err: int) -> str:

@@ -9,15 +9,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from repro_torch.kernels import build
 
-MAX_CLASSES = 16  # csrc/lr_rowcol.cuh: kMaxClasses
-COL_THREADS = 256  # csrc/lr_rowcol.cuh: kColThreads, columns per column-pass block
-BLOCKS_PER_SM = 4  # column-pass blocks the chunking aims at for each SM
-# the many-row kernels (csrc/lr_gather.cuh): minibatch_grad, replay_correction, lr_hvp
+MAX_CLASSES = 16  # csrc/lr_common.cuh: kMaxClasses
+# the many-row kernels (csrc/lr_gather.cuh): lr_grad, minibatch_grad,
+# replay_correction, lr_hvp
 GATHER_THREADS = 256  # kThreads: threads of a CTA, columns of a few-rows CTA
 GATHER_CTAS_PER_SM = 2  # kCtasPerSm: many-rows CTAs an SM holds at once
 FEW_MAX_FLOATS = 40960  # kFewMaxFloats: the few-rows kernel's shared memory at most, in floats
@@ -25,8 +25,10 @@ FEW_MAX_ROWS = 6  # kFewMaxRows: the few-rows kernel's slots at most (the measur
 GATHER_SCRATCH_FLOATS = 1 << 24  # the many-rows partials [grid, C, D] at most (64 MB)
 
 # Launches of each kernel in this process: a wrapper adds one where it
-# launches its kernel and nowhere else.
+# launches its kernel and nowhere else, under a lock, so that counts from
+# several threads are exact.
 LAUNCHES = {name: 0 for name in build.KERNELS}
+_COUNT_LOCK = threading.Lock()
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
@@ -37,8 +39,15 @@ FLOAT_TYPES = (torch.float32, torch.bfloat16)  # what the attention kernels read
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(kernel: str) -> None:
+    """Add one to `kernel`'s launch count."""
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def check_row_ids(ids: torch.Tensor, n_rows: int, what: str) -> None:
@@ -47,17 +56,6 @@ def check_row_ids(ids: torch.Tensor, n_rows: int, what: str) -> None:
     once, before its loop (the check waits for the device)."""
     if ids.numel() and not (0 <= int(ids.min()) and int(ids.max()) < n_rows):
         raise ValueError(f"{what} indexes outside the {n_rows} rows")
-
-
-def chunk_rows(n_rows: int, d: int, n_sms: int) -> tuple[int, int]:
-    """(rows per chunk, chunks) of the column pass: chunks enough that its
-    grid of (column tiles x chunks) holds about BLOCKS_PER_SM blocks for each
-    of the card's `n_sms` SMs. The chunks' partial sums are added in a fixed
-    order, so a result depends on the shapes and the SM count only."""
-    tiles = -(-d // COL_THREADS)
-    want = max(1, -(-BLOCKS_PER_SM * n_sms // tiles))
-    rows = -(-n_rows // want)
-    return rows, -(-n_rows // rows)
 
 
 def few_slots(n_classes: int) -> int:
@@ -176,4 +174,4 @@ def launch(kernel: str, fn, device: torch.device, *args) -> None:
     err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err}: {build.error_string(kernel, err)}")
-    LAUNCHES[kernel] += 1
+    count_launch(kernel)

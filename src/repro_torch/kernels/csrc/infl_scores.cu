@@ -9,7 +9,7 @@
 // reduction across blocks. The TPU kernel masks the class lanes that ops.py
 // padded to 128; here C is exact (a template parameter), so there is nothing
 // to mask.
-#include "lr_rowcol.cuh"
+#include "lr_common.cuh"
 
 namespace chef {
 

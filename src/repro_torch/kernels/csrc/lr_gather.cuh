@@ -1,12 +1,13 @@
 // Device code of the LR-head reductions over many rows: minibatch_grad and
-// replay_correction over gathered rows x_i = Xa[idx[i]], and lr_hvp over
-// every row of Xa (x_i = Xa[i]: no ids, idx is null). Each computes
+// replay_correction over gathered rows x_i = Xa[idx[i]], and lr_grad and
+// lr_hvp over every row of Xa (x_i = Xa[i]: no ids, idx is null). Each
+// computes
 //
 //     out[c, d] = (1/denom) * sum_i r[i, c] * x_i[d]  (+ l2 * base[c, d])
 //
 // with r[i] the residual of row i over the C classes, from one softmax
 // p = softmax(x_i.w^T):
-//   kGrad  r = (p - Y[src]) * g[src]                                (minibatch_grad)
+//   kGrad  r = (p - Y[src]) * g[src]                   (minibatch_grad; lr_grad, idx null)
 //   kCorr  r = (p - Y_new[src]) * (g_new[src] * m[i]) - (p - Y[src]) * (g[src] * m[i])
 //                                                                   (replay_correction)
 //   kHvp   r = (p*u - p*(p.u)) * g[i], u = x_i.v^T                  (lr_hvp; base = v)
@@ -16,10 +17,10 @@
 // byte), so no tensor cores: a call is bound by device-memory bytes (one
 // read of the rows) where it has many rows, and by latency (the launch, the
 // id load, one row load) where it has few. The three-pass code these kernels
-// ran before (lr_rowcol.cuh, as lr_grad still does) launched three kernels a
-// call, read each row twice, passed a partial sum through device memory and
-// walked each row in a warp's serial chain of loads. Here a call is one
-// launch, and each row is read once from device memory:
+// ran before launched three kernels a call, read each row twice, passed a
+// partial sum through device memory and walked each row in a warp's serial
+// chain of loads. Here a call is one launch, and each row is read once from
+// device memory:
 //
 // many_rows  a cooperative launch of G CTAs, G from the shapes and the SM
 //            count (kernels/common.py: gather_plan), at most kCtasPerSm on an
@@ -39,14 +40,14 @@
 //            groups) each CTA sums a slice of columns over the G partials in
 //            CTA order, divides by denom and adds l2 base. No float atomics,
 //            no counters to reset. Where D needs more than many_blocks(C,
-//            MODE) column blocks (kHvp: at C >= 3 for D 2049), kHvp takes
-//            rows_wide: up to kWideRows rows at once in shared memory, w and
-//            v read once for them from L2 and the partial in scratch read
-//            and written once for them; kGrad and kCorr (and kHvp past
-//            kWideFloats) take one row at a time (rows_streamed): the
-//            logits stream the row and w through L1, and r x is added into
-//            the partial in scratch, reading the row a second time (from L1
-//            or L2).
+//            MODE) column blocks (at D 2049: kHvp at C >= 3, kGrad and kCorr
+//            at C >= 4), a CTA takes rows_wide: up to kWideRows rows at once
+//            in shared memory, w (kHvp: and v) read once for them from L2
+//            and the partial in scratch read and written once for them; past
+//            kWideFloats, one row at a time (rows_streamed): the logits
+//            stream the row and w through L1, and r x is added into the
+//            partial in scratch, reading the row a second time (from L1 or
+//            L2).
 // few_rows   kGrad and kCorr with n_rows <= few_slots(C) and (n_rows + C) D
 //            <= kFewMaxFloats: one CTA per block of kThreads columns, no
 //            scratch, no barrier. Each CTA copies every slot's row and w into
@@ -66,7 +67,7 @@
 
 #include <cooperative_groups.h>
 
-#include "lr_rowcol.cuh"
+#include "lr_common.cuh"
 
 namespace chef {
 namespace gather {
@@ -114,9 +115,9 @@ __host__ __device__ constexpr int ring_floats(int C, int mode) {
   return kStages * (many_group(C, mode) * row_pitch(many_blocks(C, mode) * kThreads) +
                     kTerms * kWarp + many_group(C, mode));
 }
-// rows_wide (kHvp): rows of D floats a CTA takes at once (0: D too wide), and
-// the floats of shared memory it takes: the rows, the warps' sums of z and u
-// for each (row, class), and the residuals.
+// rows_wide: rows of D floats a CTA takes at once (0: D too wide), and the
+// floats of shared memory it takes: the rows, the warps' sums of z and u
+// (kHvp) for each (row, class), and the residuals.
 __host__ __device__ constexpr int wide_rows(int D) {
   return kWideFloats / row_pitch(D) < kWideRows ? kWideFloats / row_pitch(D) : kWideRows;
 }
@@ -125,17 +126,17 @@ __host__ __device__ constexpr int wide_floats(int C, int D) {
 }
 // The most dynamic shared memory a many-rows kernel takes, in floats.
 __host__ __device__ constexpr int many_smem_floats(int C, int mode) {
-  return mode == kHvp && kWideFloats + (2 * kWarps + 1) * kWideRows * C > ring_floats(C, mode)
+  return kWideFloats + (2 * kWarps + 1) * kWideRows * C > ring_floats(C, mode)
              ? kWideFloats + (2 * kWarps + 1) * kWideRows * C
              : ring_floats(C, mode);
 }
 // The many-rows path a call takes: rows_staged where a thread's registers
-// hold its columns, else (kHvp) rows_wide where its rows fit, else
+// hold its columns, else rows_wide where its rows fit shared memory, else
 // rows_streamed.
 enum Path { kStaged = 0, kWide = 1, kStreamed = 2 };
 __host__ __device__ constexpr int many_path(int C, int mode, int D) {
   return D <= many_blocks(C, mode) * kThreads ? kStaged
-         : mode == kHvp && wide_rows(D) >= 1  ? kWide
+         : wide_rows(D) >= 1                  ? kWide
                                               : kStreamed;
 }
 
@@ -179,7 +180,7 @@ __device__ __forceinline__ void copy_wait() {
 
 struct Args {
   const float* Xa;      // [N, D]
-  const int64_t* idx;   // [n_rows] row ids in [0, N); kHvp: null, row i is slot i
+  const int64_t* idx;   // [n_rows] row ids in [0, N); null (kHvp, lr_grad): row i is slot i
   const float* w;       // [C, D], the weights of the logits
   const float* v;       // kHvp: [C, D], the vector H(w) multiplies
   const float* Y;       // [N, C] labels (kCorr: before cleaning)
@@ -200,10 +201,10 @@ struct RowTerms {
   float y, g, y_new, g_new, m;
 };
 
-// The row of slot i: idx[i], or i itself for kHvp.
+// The row of slot i: idx[i], or i itself where there are no ids (kHvp, lr_grad).
 template <int MODE>
 __device__ __forceinline__ int64_t row_id(const Args& a, int i) {
-  return MODE == kHvp ? (int64_t)i : a.idx[i];
+  return MODE == kHvp || a.idx == nullptr ? (int64_t)i : a.idx[i];
 }
 
 template <int C, int MODE>
@@ -483,32 +484,35 @@ __device__ __forceinline__ void rows_staged(const Args& a, int i0, int i1, float
   }
 }
 
-// many_rows, kHvp, D wider than a thread's registers hold its columns of w,
-// v and the accumulators: the CTA takes rows = wide_rows(D) rows at once (8
-// at D 2049), copied into shared memory by copy_row, every copy issued at
-// once (the SM's other CTA computes meanwhile). Thread t takes columns d = t
-// + k kThreads. For each block of kWideClasses classes it sums its partial
-// z and u of the rows from shared memory, with w and v read once for the
-// rows (through L1, from L2); two transpose reductions a block take the
-// warps' sums to shared memory. One lane a (row, class) adds them in warp
-// order and forms the residual; then each thread adds r x into its columns
-// of the CTA's partial in scratch, read (every class's at once) and written
-// once for the rows. Each element of the partial is summed by one thread, in
-// row order. Latency-bound: on the H100 at N 78,487, D 2049 it takes 2.4 ms
-// at C 16, slower than three float32 matrix products (1.4 ms), though
-// faster than the three-pass code it replaced (3.0 ms).
-template <int C>
+// many_rows, D wider than a thread's registers hold its columns of w (kHvp:
+// of w, v) and the accumulators: the CTA takes rows = wide_rows(D) rows at
+// once (8 at D 2049), copied into shared memory by copy_row, every copy
+// issued at once (the SM's other CTA computes meanwhile). Thread t takes
+// columns d = t + k kThreads. For each block of kWideClasses classes it sums
+// its partial z (kHvp: and u) of the rows from shared memory, with w (and v)
+// read once for the rows (through L1, from L2); transpose reductions (one a
+// block; kHvp: two) take the warps' sums to shared memory. One lane a (row,
+// class) adds them in warp order and forms the residual; then each thread
+// adds r x into its columns of the CTA's partial in scratch, read (every
+// class's at once) and written once for the rows. Each element of the
+// partial is summed by one thread, in row order. Latency-bound: on the H100
+// at N 78,487, D 2049 kHvp takes 2.4 ms at C 16, slower than three float32
+// matrix products (1.4 ms), though faster than the three-pass code it
+// replaced (3.0 ms).
+template <int C, int MODE>
 __device__ __forceinline__ void rows_wide(const Args& a, int i0, int i1, float* part,
                                           float* dyn) {
   constexpr int R = kWideRows, CB = kWideClasses, RPW = kWarp / C;  // RPW: rows a warp forms
+  constexpr bool kHvpMode = MODE == kHvp;
   // U: columns whose w and v loads go out at once (on the H100 two took C 16
   // from 3.98 to 2.43 ms at D 2049, but C 3 from 0.54 to 0.67)
   constexpr int U = C >= 8 ? 2 : 1;
-  static_assert(R % 4 == 0 && 2 * 4 * CB == kWarp, "a transpose reduction takes 4 rows");
+  static_assert(R % 4 == 0 && 2 * 4 * CB == kWarp && R * CB == kWarp,
+                "a transpose reduction takes 4 rows of z and u, or 8 rows of z");
   const int t = threadIdx.x, warp = t / kWarp, lane = t % kWarp, D = a.D;
   const int P = row_pitch(D), rmax = wide_rows(D);
   float* wz = dyn + rmax * P;       // [kWarps][R][C] the warps' sums of z
-  float* wu = wz + kWarps * R * C;  // [kWarps][R][C] and of u
+  float* wu = wz + kWarps * R * C;  // [kWarps][R][C] and of u (kHvp)
   float* rs = wu + kWarps * R * C;  // [C][R] the residuals
   for (int i = i0; i < i1; i += rmax) {
     const int rows = min(rmax, i1 - i);
@@ -516,7 +520,9 @@ __device__ __forceinline__ void rows_wide(const Args& a, int i0, int i1, float* 
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       off[j] = 0;
-      if (j < rows) off[j] = j * P + copy_row(dyn + j * P, a.Xa + (int64_t)(i + j) * D, D, t);
+      if (j < rows) {
+        off[j] = j * P + copy_row(dyn + j * P, a.Xa + row_id<MODE>(a, i + j) * D, D, t);
+      }
     }
     copy_commit();
     copy_wait<0>();
@@ -538,7 +544,7 @@ __device__ __forceinline__ void rows_wide(const Args& a, int i0, int i1, float* 
           for (int c = 0; c < CB; ++c) {
             const bool in = c0 + c < C && d < D;
             wv[e][c] = in ? __ldg(a.w + (int64_t)(c0 + c) * D + d) : 0.f;
-            vv[e][c] = in ? __ldg(a.v + (int64_t)(c0 + c) * D + d) : 0.f;
+            vv[e][c] = kHvpMode && in ? __ldg(a.v + (int64_t)(c0 + c) * D + d) : 0.f;
           }
         }
 #pragma unroll
@@ -550,26 +556,39 @@ __device__ __forceinline__ void rows_wide(const Args& a, int i0, int i1, float* 
 #pragma unroll
             for (int c = 0; c < CB; ++c) {
               z[j][c] = fmaf(x, wv[e][c], z[j][c]);
-              u[j][c] = fmaf(x, vv[e][c], u[j][c]);
+              if (kHvpMode) u[j][c] = fmaf(x, vv[e][c], u[j][c]);
             }
           }
         }
       }
+      if constexpr (kHvpMode) {
 #pragma unroll
-      for (int h = 0; h < R / 4; ++h) {  // rows 4h .. 4h + 3
+        for (int h = 0; h < R / 4; ++h) {  // rows 4h .. 4h + 3
+          float v[kWarp];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int c = 0; c < CB; ++c) {
+              v[2 * (j * CB + c)] = z[4 * h + j][c];
+              v[2 * (j * CB + c) + 1] = u[4 * h + j][c];
+            }
+          }
+          int q;
+          const float sum = transpose_sum<kWarp>(v, lane, q);
+          const int j = 4 * h + (q >> 1) / CB, c = c0 + (q >> 1) % CB;
+          if (c < C) ((q & 1) ? wu : wz)[(warp * R + j) * C + c] = sum;
+        }
+      } else {
         float v[kWarp];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
 #pragma unroll
-          for (int c = 0; c < CB; ++c) {
-            v[2 * (j * CB + c)] = z[4 * h + j][c];
-            v[2 * (j * CB + c) + 1] = u[4 * h + j][c];
-          }
+          for (int c = 0; c < CB; ++c) v[j * CB + c] = z[j][c];
         }
         int q;
         const float sum = transpose_sum<kWarp>(v, lane, q);
-        const int j = 4 * h + (q >> 1) / CB, c = c0 + (q >> 1) % CB;
-        if (c < C) ((q & 1) ? wu : wz)[(warp * R + j) * C + c] = sum;
+        const int j = q / CB, c = c0 + q % CB;
+        if (c < C) wz[(warp * R + j) * C + c] = sum;
       }
     }
     __syncthreads();
@@ -580,15 +599,15 @@ __device__ __forceinline__ void rows_wide(const Args& a, int i0, int i1, float* 
       RowTerms s{};
       if (mine) {
         z = wz[j * C + c];
-        u = wu[j * C + c];
+        if (kHvpMode) u = wu[j * C + c];
 #pragma unroll
         for (int w = 1; w < kWarps; ++w) {
           z += wz[(w * R + j) * C + c];
-          u += wu[(w * R + j) * C + c];
+          if (kHvpMode) u += wu[(w * R + j) * C + c];
         }
-        s.g = __ldg(a.g + i + j);
+        s = row_terms<C, MODE>(a, row_id<MODE>(a, i + j), i + j, c);
       }
-      const float r = softmax_residual<C, kHvp>(z, u, lane, s);
+      const float r = softmax_residual<C, MODE>(z, u, lane, s);
       if (mine) rs[c * R + j] = r;
     }
     __syncthreads();
@@ -681,7 +700,7 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) many_rows(const Args a) 
   if (path == kStaged) {
     rows_staged<C, MODE>(a, i0, i1, part, dyn, red, redu);
   } else if (path == kWide) {
-    if constexpr (MODE == kHvp) rows_wide<C>(a, i0, i1, part, dyn);
+    rows_wide<C, MODE>(a, i0, i1, part, dyn);
   } else {
     rows_streamed<C, MODE>(a, i0, i1, part, red, redu);
   }
@@ -727,7 +746,7 @@ __global__ void __launch_bounds__(kThreads) few_rows(const Args a) {
   const int P = row_pitch(D);
   int64_t src[S];
 #pragma unroll
-  for (int j = 0; j < S; ++j) src[j] = j < r ? a.idx[j] : 0;
+  for (int j = 0; j < S; ++j) src[j] = j < r ? row_id<MODE>(a, j) : 0;
   // every copy of the slots' rows and of w's rows issued at once: one memory
   // round trip; row j at xs[j], row c of w at ws[c]
   const float* xs[S];
@@ -838,13 +857,15 @@ cudaError_t launch_c(const Args& a, int grid, bool few, cudaStream_t st) {
 // One launch on `st`: few_rows on `grid` column blocks where `few`, else
 // many_rows on `grid` CTAs with a.partial of [grid, C, D] floats; the wrapper
 // takes both from the shapes and the SM count (kernels/common.py:
-// gather_plan; kHvp: its many-rows grid). a.idx is null for kHvp only.
-// Returns the launch's error.
+// gather_plan; kHvp: its many-rows grid). a.idx is null for kHvp always,
+// for kGrad over contiguous rows (lr_grad), and never for kCorr. Returns the
+// launch's error.
 template <int MODE>
 cudaError_t launch(const Args& a, int C, int grid, int few, cudaStream_t st) {
   const int nb = (a.D + kThreads - 1) / kThreads;
   if (a.n_rows < 1 || a.D < 1 || C < 1 || C > kMaxClasses || grid < 1 ||
-      (a.idx == nullptr) != (MODE == kHvp) || (MODE == kHvp && a.v == nullptr)) {
+      (MODE == kHvp && (a.idx != nullptr || a.v == nullptr)) ||
+      (MODE == kCorr && a.idx == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const bool ok = few ? a.n_rows <= few_slots(C) && grid == nb &&

@@ -76,12 +76,14 @@ def _spec_id(spec) -> str:
 # the gathered kernels' regimes (csrc/lr_gather.cuh, common.gather_plan):
 # rows below, at and above the many-rows grid and not a multiple of it; the
 # few-rows switch on both sides (few_slots: 6 at C 2, 2 at C 16); C 16 at
-# D 2049 and D 20,001 (wider than a thread's registers hold: the streamed
-# rows); a batch of 3000 ids over 5 rows (each repeated)
+# D 2049 and D 20,001 (wider than a thread's registers hold: 8 rows and 1
+# row at once in shared memory, rows_wide) and at D 20,501 (past rows_wide's
+# shared memory: the streamed rows); a batch of 3000 ids over 5 rows (each
+# repeated)
 GATHER_SHAPES = [(4099, 2049, 2, 100), (4099, 2049, 2, (1, 0)), (4099, 2049, 2, (3, 7)),
                  (300, 2049, 2, 6), (300, 2049, 2, 7), (300, 2049, 16, 2), (300, 2049, 16, 3),
-                 (1001, 2049, 16, 500), (600, 20001, 16, 300), (5, 2049, 2, 3000),
-                 (67, 2305, 3, 40)]
+                 (1001, 2049, 16, 500), (600, 20001, 16, 300), (300, 20501, 16, 100),
+                 (5, 2049, 2, 3000), (67, 2305, 3, 40)]
 
 
 # lr_hvp on the many-rows grid (csrc/lr_gather.cuh, kHvp): C 1, 2, 3, 5 and
@@ -119,27 +121,34 @@ def test_kernel_matches_plain(op, n, d, c, bs):
 
 
 # lr_grad at the kernel phase's shapes (chip_smoke.py: the 579 validation
-# rows at D 2049) and three more: its results are those of the three-pass
-# code before lr_hvp left it, bit for bit (sha256 of the output's bytes, from
-# the tree before that change, on an H100 of 132 SMs: the chunking depends
-# on the SM count)
+# rows at D 2049) and three more: sha256 of the output's bytes, recorded on
+# an H100 of 132 SMs (the plan depends on the SM count) from the one-launch
+# kernel on csrc/lr_gather.cuh; they pin its summation order
 LR_GRAD_SHAPES = [(579, 2049, 2), (579, 2049, 16), (4099, 2049, 2), (67, 33, 3)]
-LR_GRAD_DIGESTS = {132: {"579-2049-2": "a31b2bcfa79ce7f3", "579-2049-16": "8f29a26b7c704022",
-                         "4099-2049-2": "7707db82fa01bb12", "67-33-3": "b5a93717b53b35cd"}}
+LR_GRAD_DIGESTS = {132: {"579-2049-2": "3977453b96fd38b9", "579-2049-16": "57fdfd245474af7b",
+                         "4099-2049-2": "a7fc23bccc8c2bf7", "67-33-3": "c12f1ddd00e43ea6"}}
+# the validation sets of the paper's Table 3 (twitter, fashion, chexpert,
+# fact, mimic, retina: rows, D = features + 1, C), and mimic's at C 16
+LR_GRAD_VAL_SHAPES = [(37, 769, 2), (146, 2049, 2), (234, 2049, 2), (255, 769, 2),
+                      (579, 2049, 2), (3512, 2049, 2), (579, 2049, 16)]
+
+
+def _lr_grad_inputs(dev, n, d, c) -> dict:
+    """lr_grad's inputs, made with numpy from a fixed seed."""
+    r = np.random.default_rng(7)
+    Xa = r.standard_normal((n, d)).astype(np.float32)
+    Xa[:, -1] = 1.0
+    z = r.standard_normal((n, c))
+    Y = np.exp(z) / np.exp(z).sum(-1, keepdims=True)
+    return {k: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev) for k, x in dict(
+        Xa=Xa, w=0.01 * r.standard_normal((c, d)), Y=Y, gw=r.uniform(0.5, 1.0, n)).items()}
 
 
 def _lr_grad_digests(dev) -> dict:
-    """sha256 (16 hex digits) of lr_grad's output at each of LR_GRAD_SHAPES,
-    on inputs made with numpy from a fixed seed."""
+    """sha256 (16 hex digits) of lr_grad's output at each of LR_GRAD_SHAPES."""
     out = {}
     for n, d, c in LR_GRAD_SHAPES:
-        r = np.random.default_rng(7)
-        Xa = r.standard_normal((n, d)).astype(np.float32)
-        Xa[:, -1] = 1.0
-        z = r.standard_normal((n, c))
-        Y = np.exp(z) / np.exp(z).sum(-1, keepdims=True)
-        t = {k: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev) for k, x in dict(
-            Xa=Xa, w=0.01 * r.standard_normal((c, d)), Y=Y, gw=r.uniform(0.5, 1.0, n)).items()}
+        t = _lr_grad_inputs(dev, n, d, c)
         res = lr_grad.lr_grad(t["w"], t["Xa"], t["Y"], t["gw"], 0.05)
         out[f"{n}-{d}-{c}"] = hashlib.sha256(res.cpu().numpy().tobytes()).hexdigest()[:16]
     return out
@@ -147,13 +156,69 @@ def _lr_grad_digests(dev) -> dict:
 
 def test_lr_grad_keeps_its_results():
     """lr_grad's results at LR_GRAD_SHAPES equal, bit for bit, those the
-    kernel gave before lr_rowcol.cuh lost its HVP mode."""
+    one-launch kernel gave when they were recorded."""
     dev = _card()
     want = LR_GRAD_DIGESTS.get(common.n_sms(dev))
     if want is None:
         pytest.skip(f"digests recorded for {sorted(LR_GRAD_DIGESTS)} SMs, this card has "
                     f"{common.n_sms(dev)}")
     assert _lr_grad_digests(dev) == want
+
+
+@pytest.mark.parametrize("n,d,c", LR_GRAD_VAL_SHAPES, ids=lambda v: str(v))
+def test_lr_grad_matches_plain_at_the_validation_shapes(n, d, c):
+    """lr_grad at each Table 3 validation set's shape: the plain version
+    within the tolerance, bit for bit on a second call, one launch a call."""
+    dev = _card()
+    t = _lr_grad_inputs(dev, n, d, c)
+    before = LAUNCHES["lr_grad"]
+    out = lr_grad.lr_grad(t["w"], t["Xa"], t["Y"], t["gw"], 0.05)
+    ref = lr_grad.lr_grad_plain(t["w"], t["Xa"], t["Y"], t["gw"], 0.05)
+    err = float((out - ref).abs().max())
+    assert err <= TOL_REL * float(ref.abs().max()) + TOL_ABS
+    assert torch.equal(lr_grad.lr_grad(t["w"], t["Xa"], t["Y"], t["gw"], 0.05), out)
+    assert LAUNCHES["lr_grad"] == before + 2
+
+
+def test_first_use_from_two_threads(monkeypatch, tmp_path):
+    """Two threads whose first calls to lr_grad meet (its library built anew
+    into an empty directory): nvcc runs once, both results equal the plain
+    version, and LAUNCHES counts both."""
+    import threading
+
+    from repro_torch.kernels import build
+
+    dev = _card()
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_ENTRIES", {})
+    popen, compiles = build.subprocess.Popen, []
+
+    def counting_popen(cmd, *args, **kw):
+        compiles.append(cmd)
+        return popen(cmd, *args, **kw)
+
+    monkeypatch.setattr(build.subprocess, "Popen", counting_popen)
+    t = _lr_grad_inputs(dev, 579, 2049, 2)
+    ref = lr_grad.lr_grad_plain(t["w"], t["Xa"], t["Y"], t["gw"], 0.05)
+    before, outs, start = LAUNCHES["lr_grad"], [], threading.Barrier(2)
+
+    def first_call():
+        start.wait()
+        out = lr_grad.lr_grad(t["w"], t["Xa"], t["Y"], t["gw"], 0.05)
+        torch.cuda.current_stream().synchronize()
+        outs.append(out)
+
+    threads = [threading.Thread(target=first_call) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert len(compiles) == 1 and len(outs) == 2
+    for out in outs:
+        assert float((out - ref).abs().max()) <= TOL_REL * float(ref.abs().max()) + TOL_ABS
+    assert torch.equal(outs[0], outs[1])
+    assert LAUNCHES["lr_grad"] == before + 2
 
 
 def test_kernel_path_raises_on_what_it_does_not_take():

@@ -4,7 +4,8 @@ Each kernel module of `repro_torch.kernels` holds a plain PyTorch version of
 its kernel; its wrapper computes that version for CPU tensors. Both are held
 against `repro`'s `Backend("reference")` and `Backend("pallas")` (Pallas in
 interpret mode) on the same numpy inputs: odd N = 67, D = 33, C in {2, 3};
-float32, rtol 1e-5, atol 1e-6. The ring decode's plain version is held
+float32, rtol 1e-5, atol 1e-6; lr_grad also at 579-1024 rows and C 1 and
+16. The ring decode's plain version is held
 against `repro.kernels.ops.decode_attention_ref` at the kinds of the
 card-only decode cases (bf16 outputs within 2^-7 of the largest). The
 kernels themselves run only on the card: tests/test_torch_gpu.py holds them
@@ -123,6 +124,31 @@ def test_replay_correction_plain_matches_jax(r, C, jax_backend):
     assert LAUNCHES == before
 
 
+@pytest.mark.parametrize("n,C,path", [(579, 2, True), (1024, 1, False), (600, 16, False)])
+@pytest.mark.parametrize("jax_backend", ["reference", "pallas"])
+def test_lr_grad_plain_matches_jax_over_many_blocks(n, C, path, jax_backend):
+    """lr_grad's plain version and its wrapper on CPU tensors against repro's
+    over several row blocks of the TPU kernel's sequential grid: the
+    validation gradient the cleaning loop asks for (weights all 1, l2 0) at
+    mimic's 579 rows (a ragged last block), two whole 512-row blocks at
+    C 1, and C 16, the most classes the kernel takes."""
+    r = np.random.default_rng(n + C)
+    Xa = r.standard_normal((n, D)).astype(np.float32)
+    Xa[:, -1] = 1.0
+    w = (0.3 * r.standard_normal((C, D))).astype(np.float32)
+    Y = _softmax(r.standard_normal((n, C))).astype(np.float32)
+    gw = np.ones(n, np.float32) if path else r.uniform(0.5, 1.0, n).astype(np.float32)
+    l2 = 0.0 if path else 0.05
+    t = [torch.from_numpy(x) for x in (w, Xa, Y, gw)]
+    before = dict(LAUNCHES)
+    got = lr_grad.lr_grad_plain(*t, l2)
+    want = JBackend(jax_backend).lr_grad(*(jnp.asarray(x) for x in (w, Xa, Y, gw)), l2)
+    assert got.shape == (C, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert torch.equal(lr_grad.lr_grad(*t, l2), got)
+    assert LAUNCHES == before
+
+
 def test_hvp_plain_with_precomputed_probs():
     """lr_hvp_plain(P=probs) is the reference backend's CG shortcut: the same
     product as recomputing the probs."""
@@ -153,18 +179,11 @@ def test_check_rejects_what_the_kernel_does_not_take():
                                           (264, 2049, 132), (271, 2049, 132),
                                           (300, 20_001, 132), (2, 40_000, 132)])
 def test_chunking_covers_rows_and_fills_the_card(n_rows, d, sms):
-    """The column pass's chunks cover every row exactly once, fit the grid,
-    and aim at BLOCKS_PER_SM blocks for each SM. The gathered kernels' plan
-    depends on the shapes and the SM count only: few rows go to one CTA per
-    block of columns that each take every row and fit shared memory; more
-    go to a grid the card holds at once, at most one CTA a row, whose
-    contiguous ranges take every row exactly once and whose partials fit
-    the scratch cap."""
-    rows, chunks = common.chunk_rows(n_rows, d, sms)
-    assert rows >= 1 and (chunks - 1) * rows < n_rows <= chunks * rows
-    assert chunks <= 65535
-    want = -(-common.BLOCKS_PER_SM * sms // -(-d // common.COL_THREADS))
-    assert min(n_rows, want) / 2 <= chunks <= want
+    """The gathered kernels' plan depends on the shapes and the SM count
+    only: few rows go to one CTA per block of columns that each take every
+    row and fit shared memory; more go to a grid the card holds at once, at
+    most one CTA a row, whose contiguous ranges take every row exactly once
+    and whose partials fit the scratch cap."""
     for c in (1, 2, 3, 16):
         few, grid = common.gather_plan(n_rows, d, c, sms)
         assert (few, grid) == common.gather_plan(n_rows, d, c, sms)
@@ -241,6 +260,66 @@ def test_no_nvcc_means_no_build(monkeypatch, tmp_path):
     assert not (tmp_path / "b").exists()
 
 
+def test_first_use_builds_once_across_threads(monkeypatch, tmp_path):
+    """Threads whose first calls to a kernel meet build its library once and
+    load it once, and every one gets the entry point; launch counts added
+    from many threads at once are exact."""
+    import ctypes
+    import sys
+    import threading
+
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_ENTRIES", {})
+    monkeypatch.setattr(build.shutil, "which", lambda _: "/toolkit/bin/nvcc")
+    compiles, loads = [], []
+    slow_write = "import sys, time; time.sleep(0.3); open(sys.argv[1], 'wb').write(b'lib')"
+
+    def fake_command(name, out):
+        compiles.append(out.name)
+        return [sys.executable, "-c", slow_write, str(out)]
+
+    class FakeLib:
+        def __init__(self, path):
+            loads.append(path)
+            self.chef_lr_grad = type("Fn", (), {})()
+
+    monkeypatch.setattr(build, "nvcc_command", fake_command)
+    monkeypatch.setattr(ctypes, "CDLL", FakeLib)
+    got, start = [], threading.Barrier(4)
+
+    def first_call():
+        start.wait()
+        got.append(build.entry("lr_grad", "chef_lr_grad", [ctypes.c_void_p]))
+
+    threads = [threading.Thread(target=first_call) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert len(compiles) == 1 and len(loads) == 1 and len(got) == 4
+    assert all(fn is got[0] for fn in got) and got[0].restype is ctypes.c_int
+    assert sorted(p.name for p in build.build_dir().iterdir()) == ["liblr_grad.log",
+                                                                  "liblr_grad.so"]
+    before, interval = LAUNCHES["lr_grad"], sys.getswitchinterval()
+
+    def count():
+        for _ in range(5_000):
+            common.count_launch("lr_grad")
+
+    threads = [threading.Thread(target=count) for _ in range(16)]
+    sys.setswitchinterval(1e-6)  # switch threads as often as the interpreter can
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert LAUNCHES["lr_grad"] == before + 80_000
+
+
 def _header_function(src: str, name: str):
     """A `constexpr int name(int v) { return ...; }` of a CUDA header as a
     Python function of v, over the header's integer constants."""
@@ -257,8 +336,7 @@ def _header_function(src: str, name: str):
 def test_sources_and_wrappers_agree_on_constants():
     """The constants and the plan's helpers the wrappers size scratch and
     checks with are the ones in the CUDA headers."""
-    hdr = (build.CSRC / "lr_rowcol.cuh").read_text()
-    assert f"kColThreads = {common.COL_THREADS};" in hdr
+    hdr = (build.CSRC / "lr_common.cuh").read_text()
     assert f"kMaxClasses = {common.MAX_CLASSES};" in hdr
     gather = (build.CSRC / "lr_gather.cuh").read_text()
     assert f"kThreads = {common.GATHER_THREADS};" in gather

@@ -231,16 +231,16 @@ def test_termination_policies():
 
 
 def test_factories_raise_on_what_is_not_ported():
-    """Pipelined speculation is not ported yet and is refused with a clear
-    error; the baselines' selector and DeltaGrad-L are ported."""
+    """The factories build what is ported, pipelined speculation among it,
+    and refuse what they do not know with a clear error."""
     assert make_selector("infl", "increm_tight").mode == "increm_tight"
     assert type(make_selector("random", "full")).__name__ == "BaselineSelector"
     assert type(make_constructor("retrain")).__name__ == "RetrainConstructor"
     assert type(make_constructor("deltagrad")).__name__ == "DeltaGradConstructor"
     with pytest.raises(ValueError, match="unknown constructor"):
         make_constructor("finetune")
-    with pytest.raises(NotImplementedError, match="pipelined speculation is not ported"):
-        make_scheduler(None, pipelined=True)
+    sched = make_scheduler(type("S", (), {"cfg": ChefConfig()})(), pipelined=True)
+    assert sched.pipelined and (sched.spec_hits, sched.spec_misses) == (0, 0)
     with pytest.raises(ValueError, match="Increm-INFL"):
         run_chef(None, ChefConfig(), method="loss", selector="increm", device="cpu")
 
