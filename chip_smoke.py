@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`src/repro_torch`) on one H100: the CHEF
-cleaning loop (blocking and pipelined, with a served model as annotator, and
-as jobs of the cleaning service), the paged serving path, the
+cleaning loop (blocking and pipelined, with a served model as annotator, as
+jobs of the cleaning service, and over a stream of windows), the paged
+serving path, the
 sliding-window serving path, the ring serving path and the int8 page pools.
 
     python3 chip_smoke.py
@@ -130,6 +131,22 @@ sliding-window serving path, the ring serving path and the int8 page pools.
    dataset, one cancelled after its first round and resumed from its
    checkpoint: every result equal to a direct scheduler run bit for bit, no
    job failed.
+7e. Stream: the warm StreamingCleaningSession at mimic's widths (4 windows
+   of 19,622 rows, capacity 78,488, Table 4's lr, l2 and epochs, batch 2000,
+   a round of 10 labels after each window to a budget of 40) on `cuda`
+   (launch counts set to 0 just before, read just after: every CHEF kernel
+   must launch): each window's ingest seconds, r_max and launches (the first
+   trains over the capacity, the others absorb by a DeltaGrad-L replay),
+   each round's t_select, t_update and candidates, no padding row ever
+   selected; then a cold rebuild (CleaningSession.initialize) on each
+   window's grown rows, and replay_correction at the last absorb's widest
+   step, held and timed as in 2. At twitter's widths (4 windows of 2,902 x
+   768): the warm stream on `cuda` and `reference` selects the same rows
+   each round (or parts at a priority tie) and ends within 0.005 F1; a cold
+   stream with every window in before its first round equals a batch
+   session on the same rows bit for bit (labels, weights, w, F1 each
+   round, 2 rounds); weights trained over the capacity are equal bit for
+   bit with two kinds of finite garbage in the weight-0 tail rows.
 8. Prints the kernels line (launches from the DeltaGrad-L run on `cuda`,
    for flash and paged attention from the OLMo-1B run on `cuda`, for the
    int8 partials from its int8 run, for block-sparse attention from phase
@@ -262,6 +279,11 @@ RG_DECODE_POS = 3030  # the kernel phase's decode position: the ring wrapped
 PIPE_DG_LATENCY, PIPE_LATENCY, PIPE_ROUNDS = 0.5, 2.0, 3
 ANN_ROUNDS, ANN_MAX_LEN = 2, 1024  # the model annotator's rounds and its engine's max_len
 SERVICE_ROUNDS = 2  # rounds of each job of the service phase
+# the stream phase: 4 windows at mimic's Table 3 widths (capacity 78,488, one
+# row more than mimic's 78,487) and at twitter's (capacity 11,608), a round
+# of b = B labels after each window, to a budget of 40
+STREAM_WINDOWS, STREAM_ROWS, STREAM_TW_ROWS, STREAM_BUDGET = 4, 19_622, 2_902, 40
+STREAM_BATCH_BUDGET = 20  # the cold stream against the batch session: 2 rounds
 
 
 def fail(msg: str) -> None:
@@ -1110,6 +1132,225 @@ def service_phase(torch, card_line: str) -> None:
         fail(f"service: the cancelled job ended {info}")
     if not all(all(v.values()) for v in same.values()):
         fail(f"service: results differ from the direct runs: {same}")
+
+
+def _stream_source(torch, name: str, rows: int):
+    """A SyntheticStream of STREAM_WINDOWS windows of `rows` rows at the
+    widths of Table 3's `name` (features, validation and test rows, classes)
+    and its ChefConfig (Table 4's lr, l2 and epochs; batch BS; b = B)."""
+    from repro_torch.configs import ChefConfig, paper_dataset_specs
+    from repro_torch.stream import SyntheticStream
+
+    spec = paper_dataset_specs()[name]
+    src = SyntheticStream(torch.Generator("cuda").manual_seed(SEED), window_size=rows,
+                          n_windows=STREAM_WINDOWS, n_val=spec.n_val, n_test=spec.n_test,
+                          feature_dim=spec.feature_dim, n_classes=spec.n_classes)
+    cfg = ChefConfig(n_classes=spec.n_classes, feature_dim=spec.feature_dim, lr=spec.lr,
+                     l2=spec.l2, n_epochs=spec.n_epochs, batch_size=BS, budget=STREAM_BUDGET,
+                     round_size=B, strategy="three", backend="cuda")
+    return src, cfg
+
+
+def stream_phase(torch, card_line: str) -> None:
+    """Streaming CHEF on the kernels. (1) The warm stream at mimic's widths
+    (STREAM_WINDOWS windows of STREAM_ROWS rows), a round after each window,
+    launch counts set to 0 just before and read just after: each window's
+    absorb (seconds, r_max, launches) beside a cold rebuild on the same grown
+    rows, each round's t_select, t_update and candidates, no padding row
+    ever selected, every CHEF kernel launched; replay_correction timed at the
+    absorb's widest step. (2) At twitter's widths: the warm stream on `cuda`
+    and `reference` selects the same rows each round (or parts at a priority
+    tie) and ends within F1_TOL; a cold stream with every window in before
+    the first round equals a batch session on the same rows bit for bit;
+    weights trained over the capacity do not move by a bit whatever finite
+    garbage the weight-0 tail rows hold."""
+    from repro_torch.cleaning import CleaningSession, make_scheduler
+    from repro_torch.core import deltagrad
+    from repro_torch.core.backend import Backend
+    from repro_torch.core.pipeline import train_head
+    from repro_torch.kernels import LAUNCHES, replay_correction, reset_launches
+    from repro_torch.stream import StreamingCleaningSession, WindowStore
+    from repro_torch.stream import session as stream_session
+
+    def sync_time(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def recording(s, log):
+        """Record each selection of stream `s` with the fill level it saw and
+        whether any padding row was eligible."""
+        select = s._selector.select
+
+        class Recording:
+            def select(self, sess, eligible, generator):
+                sel = select(sess, eligible, generator)
+                log.append((sel, s.store.n, bool(eligible[s.store.n:].any())))
+                return sel
+
+        s._selector = Recording()
+
+    # (1) the warm stream at mimic's widths
+    src, cfg = _stream_source(torch, "mimic", STREAM_ROWS)
+    torch.cuda.synchronize()
+    absorbs, plans = [], []
+    absorb, plan = stream_session.absorb_rows, deltagrad.build_correction_schedule
+
+    def recording_plan(sched, changed):
+        ci, cm = plan(sched, changed)
+        plans.append(cm.sum(axis=1))
+        return ci, cm
+
+    def recording_absorb(*a, **kw):
+        absorbs[:] = [a]  # the last absorb's inputs
+        return absorb(*a, **kw)
+
+    deltagrad.build_correction_schedule = recording_plan
+    stream_session.absorb_rows = recording_absorb
+    selections: list = []
+    try:
+        reset_launches()
+        t_run = time.perf_counter()
+        s = StreamingCleaningSession(src, cfg)
+        recording(s, selections)
+        while True:
+            before = dict(LAUNCHES)
+            m, ingest_s = sync_time(s.ingest)
+            if not m:
+                break
+            launched = {k: LAUNCHES[k] - before[k] for k in CHEF_KERNELS}
+            steps = plans[-1] if s.windows_ingested > 1 else None
+            emit({"phase": "stream_window", "widths": "mimic", "window": s.windows_ingested,
+                  "rows": s.store.n, "capacity": s.store.capacity,
+                  "mode": "absorb" if steps is not None else "initialize", "ingest_s": ingest_s,
+                  "steps": int(s.session.sched.shape[0]),
+                  "r_max": int(steps.max()) if steps is not None else None,
+                  "mean_real_slots": float(steps.mean()) if steps is not None else None,
+                  "launches": launched, "card": card_line})
+            for r in s.clean(1):
+                emit({"phase": "stream_round", "widths": "mimic", "round": r.round,
+                      "window": s.windows_ingested, "n_cleaned": r.n_cleaned_total,
+                      "n_candidates": r.n_candidates, "f1_val": r.f1_val, "f1_test": r.f1_test,
+                      "t_select_s": r.t_select, "t_update_s": r.t_update, "card": card_line})
+        extra = s.clean(None)
+        res = s.result()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = dict(LAUNCHES)
+    finally:
+        deltagrad.build_correction_schedule = plan
+        stream_session.absorb_rows = absorb
+    emit({"phase": "stream", "widths": "mimic", "windows": s.windows_ingested,
+          "rounds": len(res.history), "rounds_after_stream": len(extra), "wall_s": wall,
+          "f1_test_final": res.f1_test_final, "launches": launches, "card": card_line})
+    padding = [(int(sel.idx.max()), n, pad) for sel, n, pad in selections
+               if int(sel.idx.max()) >= n or pad]
+    if padding or len(res.history) != STREAM_BUDGET // B:
+        fail(f"warm stream: {len(res.history)} rounds, padding rows eligible or selected "
+             f"(top row, fill level, any padding eligible): {padding}")
+    if not bool(torch.isfinite(res.w).all()) or res.w.shape != (C, D):
+        fail(f"warm stream: w {tuple(res.w.shape)}, finite {bool(torch.isfinite(res.w).all())}")
+    missing = [k for k in CHEF_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"the warm stream launched no {missing}")
+    # the cold path's rebuild on each window's grown rows, for comparison
+    for k in range(1, STREAM_WINDOWS + 1):
+        cold, cold_s = sync_time(CleaningSession.initialize, src.batch_dataset(k), cfg)
+        emit({"phase": "stream_cold_rebuild", "widths": "mimic", "window": k,
+              "rows": k * STREAM_ROWS, "sgd_steps": int(cold.sched.shape[0]),
+              "seconds": cold_s, "card": card_line})
+        del cold
+    # replay_correction at the widest step of the last absorb (r_max slots)
+    traj, sched, Xa, Y_old, Y_new, w_old, w_new, idx = absorbs[-1][:8]
+    ci, cm = plan(sched.cpu().numpy(), idx.cpu().numpy())
+    t = int(cm.sum(axis=1).argmax())
+    r, real = int(ci.shape[1]), int(cm[t].sum())
+    args = (traj[0][t], Xa, Y_old, Y_new, w_old, w_new,
+            torch.as_tensor(ci[t], dtype=torch.int64, device="cuda"),
+            torch.as_tensor(cm[t], device="cuda"), BS)
+    del absorbs[:], s
+    kern = lambda: replay_correction.replay_correction(*args)  # noqa: E731
+    plain = lambda: replay_correction.replay_correction_plain(*args)  # noqa: E731
+    out, ref = kern(), plain()
+    err = float((out - ref).abs().max())
+    limit = TOL_REL * float(ref.abs().max()) + TOL_ABS
+    if not (bool(torch.isfinite(out).all()) and err <= limit and torch.equal(out, kern())):
+        fail(f"replay_correction at the absorb's r = {r}: max|kernel - plain| = {err} > "
+             f"{limit} or no bitwise repeat")
+    f = 4.0
+    bound_ms, bound_by = bound(f * (real * D + 2 * real * C + 2 * real + 2 * C * D) + 12.0 * r,
+                               4.0 * real * C * D)
+    emit({"phase": "kernel", "name": f"replay_correction/absorb r={r}",
+          "shape": [int(Xa.shape[0]), D, C, r, real],
+          "max_abs_err": err, "kernel_ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "card": card_line})
+    del args, traj, Xa, out, ref
+    torch.cuda.empty_cache()
+
+    # (2) twitter's widths: cuda against reference, cold against batch, the tail
+    src, cfg = _stream_source(torch, "twitter", STREAM_TW_ROWS)
+    runs = {}
+    for name in ("cuda", "reference"):
+        s = StreamingCleaningSession(src, replace(cfg, backend=name))
+        log: list = []
+        recording(s, log)
+        res, wall = sync_time(s.run)
+        runs[name] = (res, [sel for sel, _, _ in log])
+        emit({"phase": "stream", "widths": "twitter", "backend": name, "rounds": len(res.history),
+              "wall_s": wall, "t_update_s": [r.t_update for r in res.history],
+              "n_candidates": [r.n_candidates for r in res.history],
+              "f1_test_final": res.f1_test_final, "card": card_line})
+    (res_c, sel_c), (res_r, sel_r) = runs["cuda"], runs["reference"]
+    compared = 0
+    for k, (a, b) in enumerate(zip(sel_c, sel_r)):
+        ia, ib = set(a.idx.tolist()), set(b.idx.tolist())
+        if ia != ib:
+            ties = all(any(_near_bth(x, j) for x in (a, b)) for j in ia ^ ib)
+            if not ties:
+                fail(f"warm stream round {k}: cuda and reference select different rows and it "
+                     "is no priority tie")
+            break  # the runs' label states part here
+        compared += 1
+    df1 = abs(res_c.f1_test_final - res_r.f1_test_final)
+    if len(sel_c) != STREAM_BUDGET // B or df1 > F1_TOL:
+        fail(f"warm stream cuda vs reference: {len(sel_c)} rounds, F1 differs by {df1}")
+
+    c = replace(cfg, budget=STREAM_BATCH_BUDGET)
+    cold = StreamingCleaningSession(src, c, warm_start=False)
+    while cold.ingest():
+        pass
+    cold.clean(None)
+    res_cold = cold.result()
+    res_batch = make_scheduler(CleaningSession.initialize(src.batch_dataset(), c)).run()
+    same = {**_same_result(torch, res_cold, res_batch),
+            "weights": torch.equal(res_cold.dataset.y_weight, res_batch.dataset.y_weight),
+            "f1_test": [r.f1_test for r in res_cold.history]
+            == [r.f1_test for r in res_batch.history]}
+
+    store, _ = WindowStore.create(src).append(next(iter(src.windows())))
+    tail = torch.arange(store.n, store.capacity, device="cuda")
+    g = torch.Generator("cuda").manual_seed(SEED + 5)
+    garbage = [(7.5, 0.3), (100.0 * torch.randn(len(tail), store.ds.X.shape[1], generator=g,
+                                                device="cuda"),
+                            torch.rand(len(tail), store.ds.n_classes, generator=g, device="cuda"))]
+    ws = []
+    for X_tail, Y_tail in garbage:
+        X, Y = store.ds.X.clone(), store.ds.y_prob.clone()
+        X[tail], Y[tail] = X_tail, Y_tail
+        w, _, _ = train_head(replace(store.ds, X=X, y_prob=Y), cfg, cache=False,
+                             backend=Backend("cuda"))
+        ws.append(w)
+    tail_same = torch.equal(ws[0], ws[1])
+    emit({"phase": "stream_checks", "widths": "twitter", "rounds_same_selection": compared,
+          "f1_test_cuda": res_c.f1_test_final, "f1_test_reference": res_r.f1_test_final,
+          "f1_diff": df1, "f1_tol": F1_TOL, "cold_rounds": len(res_cold.history),
+          "cold_equals_batch": same, "tail_rows": len(tail), "tail_invariant": tail_same})
+    if len(res_cold.history) != STREAM_BATCH_BUDGET // B or not all(same.values()):
+        fail(f"cold stream against the batch session: {len(res_cold.history)} rounds, {same}")
+    if not tail_same:
+        fail("weights trained over the capacity move with the weight-0 tail rows' contents")
 
 
 def _device_profile(torch, fn, top: int = 12) -> dict:
@@ -2470,6 +2711,7 @@ def main() -> None:
     del ds, dg_blocking
     timed("annotator", annotator_phase, torch, card_line)
     timed("service", service_phase, torch, card_line)
+    timed("stream", stream_phase, torch, card_line)
     emit({"phase": "timing", "seconds": seconds, "total_s": sum(seconds.values())})
     # each kernel's launches from the run of the path it serves
     launches.update({"flash_attention": serve_launches["flash_attention"],

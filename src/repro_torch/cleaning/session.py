@@ -80,6 +80,11 @@ class CleaningSession:
     ledger: BudgetLedger = None  # type: ignore[assignment]
     history: list = field(default_factory=list)
     terminated: bool = False
+    # an [N] bool constraint ANDed into the round's eligibility (None: every
+    # row). The stream's window store sets it to its validity mask, so the
+    # selector never proposes a padding row; derived stream state, never
+    # checkpointed here.
+    eligible_mask: Optional[torch.Tensor] = None
     # derived caches (rebuilt, never checkpointed)
     Xa: torch.Tensor = None  # type: ignore[assignment]
     Xa_val: torch.Tensor = None  # type: ignore[assignment]
@@ -113,8 +118,12 @@ class CleaningSession:
 
     def eligible(self) -> torch.Tensor:
         """[N] bool — rows the selector may pick this round: those not yet
-        cleaned."""
-        return ~self.ds.cleaned
+        cleaned, and within `eligible_mask` where an owner (the stream's
+        window store) set one."""
+        e = ~self.ds.cleaned
+        if self.eligible_mask is not None:
+            e = e & self.eligible_mask
+        return e
 
     def round_keys(self, k: int):
         """(select, vote) generators of round k — a pure function of (key, k)."""

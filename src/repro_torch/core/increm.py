@@ -15,7 +15,6 @@ At round k (Theorem 1, with e1 = vᵀ(w^k−w⁰), e2 = ||v||·||w^k−w⁰||):
 Algorithm 1: keep the top-b smallest I_0 (their largest upper bound = L) plus
 every sample whose lower bound < L for some class. Exact Eq. 6 evaluation then
 runs only on the survivors — and provably returns the same top-b as Full.
-Streaming's `extend_provenance` is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -44,6 +43,31 @@ def build_provenance(w0, Xa, power_iters: int = 12,
     hnorm = lr_head.per_sample_hessian_norm(w0, Xa, P=p0, iters=power_iters,
                                             generator=generator)
     return Provenance(w0, p0, hnorm)
+
+
+def extend_provenance(prov: Provenance, Xa_new, *, power_iters: int = 12,
+                      generator: Optional[torch.Generator] = None, at=None,
+                      backend: Optional[Backend] = None) -> Provenance:
+    """Grow Theorem-1 provenance to newly-arrived rows without re-anchoring:
+    p0 and hnorm of the new rows at the SAME w0, the existing rows untouched
+    (the bounds are per-sample and anchored at w0, so every bound that held
+    before still holds). O(m) work for m new rows.
+
+    `at=None` concatenates the new rows onto p0 / hnorm; `at` ([m] row ids)
+    writes them into new tensors at those rows of capacity-shaped caches
+    (the stream's window store, whose padding rows the eligibility mask
+    keeps out of Algorithm 1). The power method's start vectors come from
+    `generator`, so an extended hnorm is deterministic given (w0, Xa_new,
+    generator) but not bit for bit a full rebuild; Algorithm 1's top-b
+    guarantee holds for any valid hnorm."""
+    p_new = get_backend(backend).probs(prov.w0, Xa_new)
+    h_new = lr_head.per_sample_hessian_norm(prov.w0, Xa_new, P=p_new, iters=power_iters,
+                                            generator=generator)
+    if at is None:
+        return Provenance(prov.w0, torch.cat([prov.p0, p_new]), torch.cat([prov.hnorm, h_new]))
+    at = torch.as_tensor(at, dtype=torch.int64, device=prov.p0.device)
+    return Provenance(prov.w0, prov.p0.index_copy(0, at, p_new),
+                      prov.hnorm.index_copy(0, at, h_new))
 
 
 @dataclass

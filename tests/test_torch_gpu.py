@@ -270,6 +270,33 @@ def test_run_chef_cuda_matches_reference_on_the_card():
                                                            abs=0.005)
 
 
+def test_stream_cuda_matches_reference_on_the_card():
+    """A 2-window warm stream (the second window absorbed by a DeltaGrad-L
+    replay of about 375 changed rows a step) on backend cuda and on backend
+    reference, on the card: the same rows cleaned and F1 within 0.005; the
+    five CHEF kernels all launch on cuda."""
+    from repro_torch.configs import ChefConfig
+    from repro_torch.kernels import reset_launches
+    from repro_torch.stream import StreamingCleaningSession, SyntheticStream
+
+    dev = _card()
+    src = SyntheticStream(torch.Generator(device=dev).manual_seed(3), window_size=1501,
+                          n_windows=2, n_val=101, n_test=201, feature_dim=47, class_sep=0.5)
+    cfg = ChefConfig(budget=20, round_size=10, n_epochs=6, batch_size=750, lr=0.05, l2=0.02)
+    res = {}
+    for b in ("cuda", "reference"):
+        reset_launches()
+        res[b] = StreamingCleaningSession(src, dataclasses.replace(cfg, backend=b)).run()
+        if b == "cuda":
+            assert all(LAUNCHES[k] > 0 for k in ("lr_grad", "lr_hvp", "minibatch_grad",
+                                                 "infl_scores", "replay_correction"))
+    a, b = res["cuda"], res["reference"]
+    assert len(a.history) == len(b.history) == 2
+    assert torch.equal(a.dataset.cleaned, b.dataset.cleaned)
+    assert [r.f1_test for r in a.history] == pytest.approx([r.f1_test for r in b.history],
+                                                           abs=0.005)
+
+
 def _correction_data(dev, n, d, c, r, seed=0):
     """Inputs of one replay step's correction: r slots, the last third of
     them padded (ci = 0, cm = 0) when r > 1, real ones possibly repeated."""

@@ -246,12 +246,20 @@ def test_factories_raise_on_what_is_not_ported():
 
 
 def test_entry_point_defaults_match_jax():
-    """run_chef, CleaningSession.initialize and make_scheduler default to
-    what the JAX package's do (DeltaGrad-L among them), apart from the
-    port's `device`."""
+    """run_chef, CleaningSession.initialize, make_scheduler,
+    CleaningService.submit, prepare_session and StreamingCleaningSession
+    default to what the JAX package's do (DeltaGrad-L among them), apart
+    from the port's `device`."""
+    from repro.stream import StreamingCleaningSession as JStreamingCleaningSession
+    from repro_torch.cleaning import CleaningService, prepare_session
+    from repro_torch.stream import StreamingCleaningSession
+
     pairs = [(run_chef, j_run_chef),
              (CleaningSession.initialize, j_cleaning.CleaningSession.initialize),
-             (make_scheduler, j_cleaning.make_scheduler)]
+             (make_scheduler, j_cleaning.make_scheduler),
+             (CleaningService.submit, j_cleaning.CleaningService.submit),
+             (prepare_session, j_cleaning.prepare_session),
+             (StreamingCleaningSession.__init__, JStreamingCleaningSession.__init__)]
     for port_fn, jax_fn in pairs:
         got, want = ({name: p.default for name, p in inspect.signature(fn).parameters.items()
                       if name != "device"} for fn in (port_fn, jax_fn))
