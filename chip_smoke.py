@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port (`src/repro_torch`) on one H100: the CHEF
 cleaning loop (blocking and pipelined, with a served model as annotator, as
 jobs of the cleaning service, and over a stream of windows), the paged
-serving path, the
-sliding-window serving path, the ring serving path and the int8 page pools.
+serving path, the sliding-window serving path, the ring serving path, the
+int8 page pools, and a mixture-of-experts model served plainly and with
+speculative decode.
 
     python3 chip_smoke.py
 
@@ -35,12 +36,15 @@ sliding-window serving path, the ring serving path and the int8 page pools.
    shapes (16 heads of 128): flash_attention at a 256-token prefill, a tail
    prefill (32 rows over 256 keys), GQA + window + softcap and bf16 (bf16
    outputs: 2^-7 * max|plain|); paged_attention at batch 4 over 32 table
-   pages of 8 with a parked slot, and at G = 4 with a window. The flash
+   pages of 8 with a parked slot, and at G = 4 with a window; both also at
+   Qwen3-30B-A3B's head shape (32 query heads over 4 kv heads of 128, G 8):
+   flash at a 256-token prefill, the paged partials at batch 4 and at a
+   spec verify's 4 rows of one slot. The flash
    cases also time one F.scaled_dot_product_attention call (float32, the
    same boolean mask) as the library yardstick. Each paged case (here and
    in 3b, 3c, float32 and int8) also reports its host cost a call, its
-   launch plan, as a yardstick one torch.sum over its live K/V bytes laid
-   out contiguously, the kernel and the yardstick after a clean L2 flush
+   launch plan, as a yardstick one torch.sum over its distinct live pages'
+   K/V bytes laid out contiguously, the kernel and the yardstick after a clean L2 flush
    (read, not written), and the time of the merge that follows it
    (ops.paged_decode_finish).
 3b. The same for the sliding-window kernels at StarCoder2-3B's attention
@@ -95,6 +99,23 @@ sliding-window serving path, the ring serving path and the int8 page pools.
    same prefill widths and finish order, and the local_attention and
    decode_attention launches predicted before the runs; then the `cuda`
    run under torch.profiler.
+4e. Serving Qwen3-30B-A3B (128 experts, top 8, expert d_ff 768; d_model
+   2048) at full width and 12 of its 48 layers (float32, random weights
+   from SEED, 32.4 GB, made on the card once RecurrentGemma-9B's are freed)
+   in ServeEngine(batch_size=4, max_len=256): the OLMo-1B phase's 8
+   requests on `cuda` (launch counts set to 0 just before, read just after)
+   and `reference`, then with spec_k 4 on both. Every MoE layer's routes are
+   recorded from outside the package, keyed by (request, position, layer):
+   a (token, layer) whose expert set differs between two runs must sit at a
+   router gap (k-th minus (k+1)-th probability) of at most 1e-5, and only
+   tokens no such flip reached are held to the logit tolerance; tokens
+   agree or part at a top-2 tie (or after a flip). Spec on `cuda` is held
+   to plain `cuda` the same way and must propose drafts; the launches are
+   one flash a layer per prefill and one paged a layer per decode round (a
+   spec verify is one round). Prefill ms by width, decode ms a round,
+   verify ms a call and the acceptance rate come from a second `cuda` run
+   of each with nothing recorded; then the plain `cuda` run under
+   torch.profiler.
 5. Then `sgd_train` and `deltagrad_replay` on the kernels repeat bit for
    bit, and the CHEF main path, `run_chef(method="infl",
    selector="increm")` on a mimic-shaped dataset made on the card, 2 rounds
@@ -274,6 +295,17 @@ RG_WINDOW = 2048  # the ring of a local layer (configs/recurrentgemma_9b.py)
 # the script's time (widths whole)
 RG_LAYERS = 20
 RG_DECODE_POS = 3030  # the kernel phase's decode position: the ring wrapped
+# the MoE path: Qwen3-30B-A3B at full width (128 experts, top 8, expert d_ff
+# 768; 32 query heads over 4 kv heads of 128), random weights from SEED, the
+# OLMo-1B phase's requests; of its 48 layers the first MOE_LAYERS (2.49 GB a
+# layer in float32, 32.4 GB with the embedding and head; widths whole)
+MOE_LAYERS = 12
+MOE_SPEC_K = 4  # rows a spec verify step
+# a (token, layer) whose top-k expert set differs between two runs (a route
+# flip) must sit where the k-th and (k+1)-th router probabilities of either
+# run lie at most this far apart: float noise from the attention kernels
+# moves a probability by about 1e-7 (the phase prints the largest move)
+ROUTE_MARGIN = 1e-5
 # the pipelined loop: DeltaGrad-L's annotator latency, then retrain's latency
 # and rounds under strategies 'two' and 'three'
 PIPE_DG_LATENCY, PIPE_LATENCY, PIPE_ROUNDS = 0.5, 2.0, 3
@@ -1498,8 +1530,11 @@ def attention_kernel_phase(torch, card_line: str) -> dict:
     attention shapes (16 heads of 128): flash at a prefill (S = 256), a tail
     prefill (32 rows at positions 64.. over 256 keys), GQA + window +
     softcap, and bf16; the paged partials at batch 4 with 32 table pages of
-    8, one slot parked, and at G = 4 with a window. Returns the figures of
-    the main path's shapes (prefill, batch-4 decode) for the kernels line."""
+    8, one slot parked, and at G = 4 with a window. Both also at
+    Qwen3-30B-A3B's head shape (32 query heads over 4 kv heads of 128, G 8):
+    flash at its 256-token prefill, the paged partials at batch 4 and at its
+    spec verify (MOE_SPEC_K rows of one slot). Returns the figures of the
+    main path's shapes (prefill, batch-4 decode) for the kernels line."""
     from repro_torch.kernels import ops, paged_attention
     from repro_torch.models.attention import AttnSpec
 
@@ -1514,6 +1549,8 @@ def attention_kernel_phase(torch, card_line: str) -> dict:
         "flash_attention/gqa_window_softcap": (1, 256, 256, 16, 4, 128, 0, 64, 30.0,
                                                torch.float32),
         "flash_attention/bf16": (1, 256, 256, 16, 16, 128, 0, 0, 0.0, torch.bfloat16),
+        # Qwen3-30B-A3B's prefill: 32 query heads over 4 kv heads of 128 (G 8)
+        "flash_attention/g8": (1, 256, 256, 32, 4, 128, 0, 0, 0.0, torch.float32),
     }
     for name, (B, Sq, Skv, Hq, Hkv, D, off, window, softcap, dtype) in flash_cases.items():
         q = torch.randn(B, Sq, Hq, D, generator=g, device=dev).to(dtype)
@@ -1541,17 +1578,22 @@ def attention_kernel_phase(torch, card_line: str) -> dict:
             BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32X3_OPS_PER_S, card_line,
             bf16=dtype == torch.bfloat16)
     paged_cases = {
-        # name: B, Hkv, G, D, P, table pages, pool pages, window
-        "paged_attention": (4, 16, 1, 128, 8, 32, 129, 0),
-        "paged_attention/gqa4_window": (4, 4, 4, 128, 8, 32, 129, 40),
+        # name: B, Hkv, G, D, P, table pages, pool pages, window, table
+        "paged_attention": (4, 16, 1, 128, 8, 32, 129, 0, _olmo_decode_table),
+        "paged_attention/gqa4_window": (4, 4, 4, 128, 8, 32, 129, 40, _olmo_decode_table),
+        # Qwen3-30B-A3B's decode at batch 4 (G 8), and its spec verify: the
+        # MOE_SPEC_K rows of one slot at consecutive positions
+        "paged_attention/g8": (4, 4, 8, 128, 8, 32, 129, 0, _olmo_decode_table),
+        "paged_attention/g8_verify": (MOE_SPEC_K, 4, 8, 128, 8, 32, 129, 0, _verify_table),
     }
-    for name, (B, Hkv, G, D, P, n_table, n_phys, window) in paged_cases.items():
+    for name, (B, Hkv, G, D, P, n_table, n_phys, window, make_table) in paged_cases.items():
         q = torch.randn(B, Hkv, G, D, generator=g, device=dev)
         k_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev)
         v_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev)
-        table, pos = _olmo_decode_table(torch, g, dev, n_table, n_phys)
+        table, pos = make_table(torch, g, dev, n_table, n_phys)
         n_live = float(_live_pages(torch, table, pos, P, window).sum())
-        nbytes = (4.0 * (B * Hkv * G * D + 2 * n_live * P * Hkv * D + B * n_table + B)
+        n_read = _pages_read(torch, table, pos, P, window)
+        nbytes = (4.0 * (B * Hkv * G * D + 2 * n_read * P * Hkv * D + B * n_table + B)
                   + 4.0 * B * Hkv * n_table * G * (D + 2))
         ops_n = 4.0 * G * D * P * n_live * Hkv
         a = (q, k_pages, v_pages, table, pos)
@@ -1579,6 +1621,15 @@ def _olmo_decode_table(torch, g, dev, n_table: int, n_phys: int):
     return table, pos
 
 
+def _verify_table(torch, g, dev, n_table: int, n_phys: int):
+    """A spec verify's table: MOE_SPEC_K rows on one slot's n_table pages, at
+    positions 150, 151, ... (a slot 150 tokens in)."""
+    ids = (torch.randperm(n_phys - 1, generator=g, device=dev) + 1).int()
+    table = ids[:n_table][None].repeat(MOE_SPEC_K, 1)
+    pos = torch.arange(150, 150 + MOE_SPEC_K, dtype=torch.int32, device=dev)
+    return table, pos
+
+
 def _starcoder_decode_table(torch, g, dev, n_table: int, n_phys: int, window: int):
     """StarCoder2-3B's decode table: two slots SC_MAX_NEW - 1 tokens into
     prompts of SC_LENGTHS[:2], the whole pages past the window retired."""
@@ -1602,10 +1653,17 @@ def _live_pages(torch, table, pos, P: int, window: int):
     return live
 
 
+def _pages_read(torch, table, pos, P: int, window: int) -> float:
+    """The distinct live pages, which a bound reads once each however many
+    rows point at them (a spec verify's rows all hold their slot's table
+    row). The work counts every (row, page) pair."""
+    return float(torch.unique(table[_live_pages(torch, table, pos, P, window)]).numel())
+
+
 def _paged_extra(torch, kern, q, k_pages, v_pages, table, pos, window: int) -> dict:
     """Beside a paged case: the host's cost of a call, the launch plan (query
     rows a warp, warps a CTA, keys a transpose reduction, shared memory), a
-    yardstick (one torch.sum over the live pages' K and V bytes laid out
+    yardstick (one torch.sum over the distinct live pages' K and V bytes laid out
     contiguously, as float32, timed as the kernel is), the kernel and the
     yardstick after a clean flush (call_times), and the time of the merge,
     ops.paged_decode_finish, on the kernel's partials."""
@@ -1613,7 +1671,7 @@ def _paged_extra(torch, kern, q, k_pages, v_pages, table, pos, window: int) -> d
 
     B, Hkv, G, D = q.shape
     P = k_pages.shape[1]
-    ids = table[_live_pages(torch, table, pos, P, window)].long()
+    ids = torch.unique(table[_live_pages(torch, table, pos, P, window)]).long()
     flat = torch.cat([k_pages[ids].reshape(-1), v_pages[ids].reshape(-1)]).view(torch.float32)
     sink = torch.empty((), device=q.device)
     read = lambda: torch.sum(flat, 0, out=sink)  # noqa: E731
@@ -1727,6 +1785,7 @@ def windowed_kernel_phase(torch, card_line: str) -> dict:
     v_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev)
     table, pos = _starcoder_decode_table(torch, g, dev, n_table, n_phys, W)
     n_live = float(_live_pages(torch, table, pos, P, W).sum())
+    n_read = _pages_read(torch, table, pos, P, W)
     G = Hq // Hkv
     a = (q, k_pages, v_pages, table, pos)
     kern = lambda: paged_attention.paged_attention_partials(*a, window=W)  # noqa: E731
@@ -1734,7 +1793,7 @@ def windowed_kernel_phase(torch, card_line: str) -> dict:
         torch, "paged_attention/starcoder2", kern,
         lambda: paged_attention.paged_attention_partials_reference(*a, window=W), None,
         [2, Hkv, G, D, P, n_table, n_phys, W],
-        4.0 * (q.numel() + 2 * n_live * P * Hkv * D + table.numel() + 2)
+        4.0 * (q.numel() + 2 * n_read * P * Hkv * D + table.numel() + 2)
         + 4.0 * 2 * Hkv * n_table * G * (D + 2), 4.0 * G * D * P * n_live * Hkv,
         FP32_OPS_PER_S, card_line,
         pairs=lambda out, ref: _partial_pairs(torch, "paged_attention/starcoder2", out, ref))
@@ -1839,7 +1898,8 @@ def ring_int8_kernel_phase(torch, card_line: str) -> dict:
         n_live = float(_live_pages(torch, table, pos, P, window).sum())
         # q, the live pages' codes and scales, the table and positions in;
         # every table page's partial out
-        nbytes = (4.0 * (q.numel() + B * n_table + B) + n_live * Hkv * (2 * P * D + 8)
+        nbytes = (4.0 * (q.numel() + B * n_table + B)
+                  + _pages_read(torch, table, pos, P, window) * Hkv * (2 * P * D + 8)
                   + 4.0 * B * Hkv * n_table * G * (D + 2))
         a = (q, kq, vq, ks, vs, table, pos)
         kern = lambda: paged_attention.paged_attention_partials_quant(  # noqa: E731
@@ -2217,10 +2277,13 @@ def _serve_figures(timings: list, stats: dict, done: list, wall: float) -> dict:
 
 
 def _compare_streams(np, what: str, done, done_ref, max_new: int,
-                     logit_tol: float = LOGIT_TOL) -> tuple[float, list]:
+                     logit_tol: float = LOGIT_TOL, flipped=None) -> tuple[float, list]:
     """Tokens of two runs equal, or parting only at a top-2 tie within
-    TIE_MARGIN; logits within `logit_tol` up to the first parting. Returns
-    (the largest relative logit difference, the partings)."""
+    TIE_MARGIN; logits within `logit_tol` up to the first parting. With
+    `flipped` ({uid: position}, from `_route_flips`), a request's outputs
+    from that position on carry a route flip: their logits are not held and
+    its tokens may part there. Returns (the largest relative logit
+    difference, the partings)."""
     worst, parted = 0.0, []
     by_uid = {q.uid: q for q in done_ref}
     for q in done:
@@ -2228,16 +2291,20 @@ def _compare_streams(np, what: str, done, done_ref, max_new: int,
         if len(q.out) != max_new or len(p.out) != max_new:
             fail(f"{what}: request {q.uid} gave {len(q.out)} / {len(p.out)} tokens")
         i = _first_divergence(q, p)
+        # token t comes from position len(prompt) - 1 + t
+        reached = (flipped or {}).get(q.uid, 1 << 30) - len(q.prompt) + 1
         upto = max_new if i is None else i + 1
-        for a, b in zip(q.logits[:upto], p.logits[:upto]):
+        for t, (a, b) in enumerate(zip(q.logits[:upto], p.logits[:upto])):
             if not np.isfinite(a).all():
                 fail(f"{what}: request {q.uid}: non-finite logits")
-            worst = max(worst, float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))))
+            if t < reached:
+                worst = max(worst, float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))))
         if i is not None:
             top2 = np.sort(p.logits[i])[-2:]
             margin = float(top2[1] - top2[0])
-            parted.append({"uid": q.uid, "token": i, "top2_margin": margin})
-            if margin > TIE_MARGIN:
+            parted.append({"uid": q.uid, "token": i, "top2_margin": margin,
+                           "after_route_flip": i >= reached})
+            if margin > TIE_MARGIN and i < reached:
                 fail(f"{what}: request {q.uid} parts at token {i} with a top-2 margin {margin}")
     if worst > logit_tol:
         fail(f"{what}: logits differ by {worst} > {logit_tol} (relative to 1+|b|)")
@@ -2506,6 +2573,311 @@ def recurrent_phase(torch, card_line: str) -> dict:
     return launches
 
 
+class _RouteRecorder:
+    """Records the routes of every MoE layer a serving run takes, keyed by
+    (request uid, token position, layer), from outside the package and
+    through public surfaces only. It wraps `repro_torch.models.moe.route`
+    (the top-k picks and the top k + 1 router probabilities, kept on the
+    card until the run ends) and the model's prefill, prefill_tail and
+    decode_step, whose inputs say which request and position each row
+    holds: a prefill's by its tokens against the prompts not yet admitted;
+    a decode row's by its position and token against the requests' own
+    `out` (a step feeds a request's last token, at position len(prompt) +
+    len(out) - 1), the further rows on the same table row being that
+    request's spec drafts at the next positions. A spec verify that repeats
+    a position overwrites the rejected draft's entry. A decode row that
+    several requests match is left out and counted; one that none matches
+    fails the run."""
+
+    def __init__(self, torch, model, page_size: int):
+        from repro_torch.models import moe
+
+        self.torch, self.model, self.moe, self.P = torch, model, moe, page_size
+        self.reqs, self.calls, self.rows, self.first, self.ambiguous = [], [], None, 0, 0
+
+    def install(self):
+        import numpy as np
+
+        moe, model = self.moe, self.model
+        self.plain = (moe.route, model.prefill, model.prefill_tail, model.decode_step)
+        route, prefill, tail, decode = self.plain
+
+        def routed(probs, k):
+            gates, idx = route(probs, k)
+            if self.rows is not None:
+                self.calls.append((self.rows, len(self.calls) - self.first, idx,
+                                   self.torch.topk(probs, k + 1, dim=-1).values))
+            return gates, idx
+
+        def prefill_rows(toks, start):
+            toks = toks.cpu().numpy()[0]
+            for r in self.reqs:
+                tail = r.prompt[start:]
+                if not r.out and len(tail) <= len(toks) and (toks[:len(tail)] == tail).all() \
+                        and not toks[len(tail):].any():
+                    return [(0, r.uid, start + np.arange(len(tail)))]
+            fail(f"moe routes: a prefill of no waiting prompt (start {start})")
+
+        def decode_rows(cache, batch):
+            pos, pages = cache["pos"].cpu().numpy(), cache["pages"].cpu().numpy()
+            toks = batch["tokens"].cpu().numpy()[:, 0]
+            live = [r for r in self.reqs if r.out and not r.done]
+            rows, owner = [], {}
+            for b in np.argsort(pos, kind="stable"):  # a table row's first position first
+                if not pages[b].any():
+                    continue  # parked on the trash row
+                key = pages[b].tobytes()
+                if key not in owner:
+                    hits = [r.uid for r in live
+                            if len(r.prompt) + len(r.out) - 1 == pos[b] and r.out[-1] == toks[b]]
+                    if not hits:
+                        fail(f"moe routes: decode row {b} (position {pos[b]}, token {toks[b]}) "
+                             "matches no request")
+                    owner[key] = hits[0] if len(hits) == 1 else None
+                    self.ambiguous += len(hits) > 1
+                if owner[key] is not None:
+                    rows.append((int(b), owner[key], pos[b:b + 1]))
+            return rows
+
+        def enter(rows):
+            self.rows, self.first = rows, len(self.calls)
+
+        def on_prefill(params, batch, **kw):
+            enter(prefill_rows(batch["tokens"], 0))
+            return prefill(params, batch, **kw)
+
+        def on_tail(params, batch, paged_cache, **kw):
+            enter(prefill_rows(batch["tokens"], kw["share_pages"] * self.P))
+            return tail(params, batch, paged_cache, **kw)
+
+        def on_decode(params, cache, batch, **kw):
+            enter(decode_rows(cache, batch))
+            return decode(params, cache, batch, **kw)
+
+        moe.route = routed
+        model.prefill, model.prefill_tail, model.decode_step = on_prefill, on_tail, on_decode
+
+    def watch(self, reqs: list):
+        """Follow the run of `reqs` that comes next."""
+        self.reqs, self.calls, self.ambiguous = reqs, [], 0
+
+    def table(self) -> dict:
+        """{(uid, pos, layer): (sorted top-k expert ids, top k + 1 probs)} of
+        the run watched last."""
+        import numpy as np
+
+        out = {}
+        for rows, layer, idx, top in self.calls:
+            idx, top = idx.cpu().numpy(), top.float().cpu().numpy()
+            for b, uid, positions in rows:
+                for s, p in enumerate(positions):
+                    out[(uid, int(p), layer)] = (np.sort(idx[b, s]), top[b, s])
+        self.rows = None
+        return out
+
+    def uninstall(self):
+        self.moe.route = self.plain[0]
+        self.model.prefill, self.model.prefill_tail, self.model.decode_step = self.plain[1:]
+
+
+def _route_flips(np, rec, rec_ref, cutoff: dict, shared: set, prefix: int) -> dict:
+    """The (uid, pos, layer) keys both runs hold, before each uid's first
+    position whose input token differs (`cutoff`), whose top-k expert sets
+    differ. A flip at (pos0, l0) changes every later layer at pos0 and after
+    (and, in a shared prefix, the sharers' same positions), so a differing
+    key downstream of a flip is a consequence; every other one is a root and
+    must sit at a router gap (k-th minus (k+1)-th probability) of at most
+    ROUTE_MARGIN in either run. Returns the roots, the counts, the largest
+    probability move where routes agree, and from which position each uid's
+    outputs carry a flip."""
+    keys = [k for k in set(rec) & set(rec_ref) if k[1] < cutoff.get(k[0], 1 << 30)]
+    roots, consequent, max_dp = [], 0, 0.0
+
+    def downstream(uid, pos, layer):
+        return any(layer > l0 and pos >= p0 and (u0 == uid or (
+            p0 < prefix and u0 in shared and uid in shared)) for u0, p0, l0, *_ in roots)
+
+    for uid, pos, layer in sorted(keys, key=lambda k: (k[2], k[1], k[0])):
+        (ids, top), (ids_ref, top_ref) = rec[(uid, pos, layer)], rec_ref[(uid, pos, layer)]
+        if downstream(uid, pos, layer):
+            consequent += not np.array_equal(ids, ids_ref)
+            continue
+        if np.array_equal(ids, ids_ref):
+            max_dp = max(max_dp, float(np.abs(top - top_ref).max()))
+            continue
+        gaps = (float(top[-2] - top[-1]), float(top_ref[-2] - top_ref[-1]))
+        roots.append((uid, pos, layer, gaps))
+        if min(gaps) > ROUTE_MARGIN:
+            fail(f"moe routes: request {uid} position {pos} layer {layer} flips at router gaps "
+                 f"{gaps} > {ROUTE_MARGIN}")
+    affected = {}
+    for u0, p0, _, _ in roots:
+        for uid in ({u0} | shared if u0 in shared and p0 < prefix else {u0}):
+            affected[uid] = min(affected.get(uid, 1 << 30), p0)
+    return {"keys": len(keys), "roots": [[u, p, l, g] for u, p, l, g in roots],
+            "consequent_flips": consequent, "max_prob_move_where_routes_agree": max_dp,
+            "affected_from": affected, "missing_keys": len(set(rec) ^ set(rec_ref))}
+
+
+def _compare_routed(np, what: str, done, done_ref, rec, rec_ref, max_new: int,
+                    shared: set, prefix: int) -> dict:
+    """Two runs of the same requests: the route flips (`_route_flips`, up to
+    each request's first differing input token), then `_compare_streams`
+    with the positions the flips reached."""
+    by_uid = {q.uid: q for q in done_ref}
+    cutoff = {}
+    for q in done:
+        i = _first_divergence(q, by_uid[q.uid])
+        if i is not None:
+            cutoff[q.uid] = len(q.prompt) + i  # from here the input tokens differ
+    routes = _route_flips(np, rec, rec_ref, cutoff, shared, prefix)
+    worst, parted = _compare_streams(np, what, done, done_ref, max_new,
+                                     flipped=routes["affected_from"])
+    routes["affected_from"] = {str(k): v for k, v in routes["affected_from"].items()}
+    return {"same_tokens": not parted, "parted": parted, "max_logit_diff_rel": worst,
+            "routes": routes}
+
+
+def moe_phase(torch, card_line: str) -> dict:
+    """The MoE path at Qwen3-30B-A3B's full width (d_model 2048, 32 query
+    heads over 4 kv heads of 128, 128 experts, top 8, expert d_ff 768, vocab
+    151,936 padded to 152,064; the first MOE_LAYERS of its 48 layers),
+    float32, random weights from SEED drawn on the card, made once
+    RecurrentGemma-9B's are freed: ServeEngine(batch_size=4, max_len=256),
+    paged, serves the OLMo-1B phase's 8 requests (four sharing a 64-token
+    prefix, 16 new tokens each) on backend cuda (launch counts set to 0 just
+    before, read just after) and on reference, then again with spec_k
+    MOE_SPEC_K on both. Every run's routes are recorded (`_RouteRecorder`);
+    cuda and reference, plain and spec, are held as `_compare_routed` says,
+    and spec cuda against plain cuda the same way; spec must propose drafts;
+    the counters of cuda and reference must be equal, and the cuda runs must
+    launch flash once a layer per prefill and the paged partials once a layer
+    per decode round (a spec verify is one decode call). Then the plain and
+    spec runs once more on cuda with no recorder, their tokens those of the
+    recorded runs: prefill ms by width, decode ms a round, verify ms a call
+    and the acceptance rate come from these; and a device profile of the
+    plain cuda run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServeConfig, ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()  # RecurrentGemma-9B's parameters are gone
+    dev = torch.device("cuda")
+    cfg = replace(get_config("qwen3-moe-30b-a3b"), n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    emit({"phase": "serve_model", "arch": cfg.name, "params": n_params,
+          "param_bytes": 4 * n_params, "init_s": time.perf_counter() - t0,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k, "expert_d_ff": cfg.moe.d_ff,
+          "padded_vocab": cfg.padded_vocab, "memory_allocated": torch.cuda.memory_allocated()})
+    r = np.random.default_rng(SEED)
+    shared = r.integers(0, cfg.vocab_size, SERVE_PREFIX)
+    prompts = []
+    for i, n in enumerate(SERVE_LENGTHS):
+        p = r.integers(0, cfg.vocab_size, n)
+        if i in SERVE_SHARED:
+            p[:SERVE_PREFIX] = shared
+        prompts.append(p.astype(np.int32))
+    def serve(backend, reqs, spec_k=0, batch_size=SERVE_BATCH):
+        eng = ServeEngine(model, params, backend=backend, device=dev,
+                          config=ServeConfig(batch_size=batch_size, max_len=SERVE_MAX_LEN,
+                                             trace_logits=True, spec_k=spec_k))
+        recorder.watch(reqs)
+        t = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        return done, dict(eng.stats), time.perf_counter() - t
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_new=SERVE_MAX_NEW) for i, p in enumerate(prompts)]
+
+    recorder = _RouteRecorder(torch, model, 8)
+    recorder.install()
+    for backend in ("cuda", "reference"):  # warm-up: cuBLAS at these widths, the kernels' load
+        serve(backend, [Request(uid=1, prompt=prompts[1], max_new=2)], batch_size=1)
+        serve(backend, [Request(uid=1, prompt=prompts[1], max_new=3)], MOE_SPEC_K, 1)
+    runs = {}
+    for spec_k in (0, MOE_SPEC_K):
+        for backend in ("cuda", "reference"):
+            reset_launches()
+            done, stats, wall = serve(backend, requests(), spec_k)
+            launches = dict(LAUNCHES)
+            runs[(spec_k, backend)] = (done, stats, launches, recorder.table())
+            emit({"phase": "serve_routed", "arch": cfg.name, "layers": cfg.n_layers,
+                  "spec_k": spec_k, "backend": backend, "stats": stats,
+                  "wall_s_with_recorder": wall, "ambiguous_decode_rows": recorder.ambiguous,
+                  "launches": launches if backend == "cuda" else None})
+    recorder.uninstall()
+    # the times, from the same runs on cuda with no recorder installed: each
+    # model call synced and timed on the host
+    timings: list = []
+    undo = _time_model_calls(torch, model, timings)
+    for spec_k in (0, MOE_SPEC_K):
+        timings.clear()
+        done, stats, wall = serve("cuda", requests(), spec_k)
+        if [q.out for q in done] != [q.out for q in runs[(spec_k, "cuda")][0]]:
+            fail(f"moe serve spec_k {spec_k}: the untraced cuda run's tokens differ from the "
+                 "recorded one's")
+        figures = _serve_figures(timings, stats, done, wall)
+        if spec_k:
+            figures["verify_ms_per_call_mean"] = figures.pop("decode_ms_per_round_mean")
+            figures["verify_ms_per_call_min"] = figures.pop("decode_ms_per_round_min")
+            figures["acceptance"] = stats["spec_accepted"] / max(stats["spec_proposed"], 1)
+        emit({"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers, "spec_k": spec_k,
+              "backend": "cuda", **figures, "card": card_line})
+    undo()
+    group = set(SERVE_SHARED)
+    results = {}
+    for name, a, b in (("plain", (0, "cuda"), (0, "reference")),
+                       ("spec", (MOE_SPEC_K, "cuda"), (MOE_SPEC_K, "reference")),
+                       ("spec_vs_plain", (MOE_SPEC_K, "cuda"), (0, "cuda"))):
+        (done_a, stats_a, launches, rec_a), (done_b, stats_b, _, rec_b) = runs[a], runs[b]
+        if name != "spec_vs_plain":
+            if [q.uid for q in done_a] != [q.uid for q in done_b] or stats_a != stats_b:
+                fail(f"moe serve {name}: the backends scheduled differently: {stats_a} vs "
+                     f"{stats_b}")
+            want = {"flash_attention": cfg.n_layers * len(prompts),
+                    "paged_attention": cfg.n_layers * stats_a["decode_rounds"]}
+            got = {k: launches[k] for k in want}
+            if got != want:
+                fail(f"moe serve {name}: the cuda run launched {got}, its schedule predicts "
+                     f"{want}")
+        results[name] = _compare_routed(np, f"moe serve {name}", done_a, done_b, rec_a, rec_b,
+                                        SERVE_MAX_NEW, group, SERVE_PREFIX)
+        emit({"phase": "serve_compare", "arch": cfg.name, "runs": [list(a), list(b)],
+              **results[name], "logit_tol": LOGIT_TOL, "tie_margin": TIE_MARGIN,
+              "route_margin": ROUTE_MARGIN, "prefix_hits": stats_a["prefix_hits"],
+              "decode_rounds": [stats_a["decode_rounds"], stats_b["decode_rounds"]],
+              "launches": {k: launches[k] for k in ("flash_attention", "paged_attention")}})
+    spec_stats = runs[(MOE_SPEC_K, "cuda")][1]
+    if spec_stats["spec_proposed"] <= 0 or runs[(0, "cuda")][1]["prefix_hits"] < 2:
+        fail(f"moe serve: spec proposed {spec_stats['spec_proposed']}, "
+             f"{runs[(0, 'cuda')][1]['prefix_hits']} prefix hits (the requests make 2)")
+    prof = _device_profile(torch, lambda: serve("cuda", requests()), top=15)
+    emit({"phase": "serve_trace", "what": "8 requests, Qwen3-30B-A3B full width, "
+          f"{cfg.n_layers} layers, backend cuda", "wall_s_traced": prof["wall_s"],
+          "device_busy_s": prof["busy_us"] * 1e-6, "device_idle_share": prof["idle_share"],
+          "device_kernels": prof["kernels"],
+          "decode_rounds": runs[(0, "cuda")][1]["decode_rounds"],
+          "blocking_runtime_calls": prof["blocking"],
+          "top_host_ops_self_us": prof["top_host_ops"],
+          "top_device_kernels_us": prof["top_device_kernels"], "card": card_line})
+    launches = runs[(0, "cuda")][2]
+    del model, params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def serve_trace(torch, card_line: str, serve_once, rounds: int) -> None:
     """Where the serving run's time goes on the card: the same 8-request run
     on `cuda` once under sync-debug mode (every synchronizing PyTorch call
@@ -2700,6 +3072,7 @@ def main() -> None:
     sparse_launches = timed("block_sparse", block_sparse_phase, torch, card_line)
     sc_launches = timed("starcoder", starcoder_phase, torch, card_line)
     rg_launches = timed("recurrent", recurrent_phase, torch, card_line)
+    timed("moe", moe_phase, torch, card_line)
     timed("determinism", determinism_phase, torch)
     ds, cfg = timed("dataset", dataset_phase, torch)
     timed("loop_retrain", loop_phase, torch, card_line, ds, cfg, "retrain")

@@ -1,6 +1,6 @@
 """The port's own copy of `repro.configs.base`: the architecture config, its
 registry and `reduced` (the port imports nothing of `repro`), with the
-RG-LRU sub-config.
+MoE and RG-LRU sub-configs.
 
 Only the architectures the port can run are registered. Asking `get_config`
 for one `repro` registers but the port cannot run yet raises and names
@@ -15,6 +15,21 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, replace
 from typing import Callable, Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """`repro`'s mixture-of-experts config (every field and default)."""
+
+    n_experts: int
+    top_k: int
+    d_ff: int  # per-expert hidden dim
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # "tp": experts replicated over data, d_ff sharded over model.
+    # "ep": expert dim sharded over model axis (requires n_experts % model == 0).
+    # One card runs both alike; the field is kept so configs carry across.
+    parallelism: str = "tp"
 
 
 @dataclass(frozen=True)
@@ -49,9 +64,9 @@ class ModelConfig:
     mlp_kind: str = "swiglu"  # swiglu | gelu
     # layer pattern
     block_pattern: tuple = ("attn",)
-    # mixtures / recurrences: repro's MoEConfig / SSMConfig (never set on
-    # the archs the port registers) and RGLRUConfig
-    moe: Optional[object] = None
+    # mixtures / recurrences: MoEConfig, repro's SSMConfig (never set on the
+    # archs the port registers) and RGLRUConfig
+    moe: Optional[MoEConfig] = None
     ssm: Optional[object] = None
     rglru: Optional[RGLRUConfig] = None
     # encoder-decoder (whisper)
@@ -78,9 +93,9 @@ class ModelConfig:
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """A tiny same-family variant for CPU tests (`repro`'s rule, for the
-    archs the port registers: the RG-LRU width shrinks to 64; no MoE or SSM
-    sub-config to shrink)."""
+    """A tiny same-family variant for CPU tests (`repro`'s rule: 4 experts,
+    top 2, expert d_ff 32 for a MoE; the RG-LRU width shrinks to 64; no arch
+    the port registers has an SSM sub-config)."""
     updates: dict = dict(
         n_layers=max(2, len(cfg.block_pattern)),
         d_model=64,
@@ -94,6 +109,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         encoder_seq=16 if cfg.is_encoder_decoder else 0,
         remat=False,
     )
+    if cfg.moe is not None:
+        updates["moe"] = replace(cfg.moe, n_experts=4, top_k=2, d_ff=32)
     if cfg.rglru is not None:
         updates["rglru"] = replace(cfg.rglru, lru_width=64)
     updates.update(overrides)
@@ -103,9 +120,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 # archs `repro` registers that the port cannot run yet (ROADMAP.md queue 1,
-# items 8-9: MoE, SSM, enc-dec, M-RoPE)
-NOT_PORTED = ("granite-8b", "mamba2-370m", "mixtral-8x22b", "qwen2-72b", "qwen2-vl-72b",
-              "qwen3-moe-30b-a3b", "whisper-tiny")
+# item 8: SSM, enc-dec, M-RoPE)
+NOT_PORTED = ("mamba2-370m", "qwen2-vl-72b", "whisper-tiny")
 
 
 def register(name: str):

@@ -93,10 +93,11 @@ def state_from_numpy(state: dict, device="cpu") -> dict:
 
 def model_params_from_numpy(cfg, tree, device="cpu") -> dict:
     """The JAX package's model parameters (its `Model.init` pytree with numpy
-    leaves: `embed.tok`, the stacked `blocks[j]` leaves `attn.wq/wk/wv/wo`
-    or `rglru.w_in/w_gate_branch/conv_w/conv_b/w_a/b_a/w_x/b_x/lam/w_out`,
-    `mlp.wi/wg/wo`, the norms where parametric, the remainder layers `tail`,
-    `final_norm`) -> the port's parameter tree on `device`. Raises unless
+    leaves: `embed.tok` (and `embed.head` untied), the stacked `blocks[j]`
+    leaves `attn.wq/wk/wv/wo` (and `bq/bk/bv` with qkv bias) or
+    `rglru.w_in/w_gate_branch/conv_w/conv_b/w_a/b_a/w_x/b_x/lam/w_out`,
+    `mlp.wi/wg/wo` or, in an `attn_moe` block, `moe.router/wi/wg/wo`, the
+    norms where parametric, the remainder layers `tail`, `final_norm`) -> the port's parameter tree on `device`. Raises unless
     every name and shape is the one the port's `init_params` makes for
     `cfg`."""
     from repro_torch.models import transformer as T

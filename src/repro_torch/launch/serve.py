@@ -16,14 +16,18 @@ prefills through the banded kernel and, paged, retires pages that slid out
 of its window; `--prefill_chunk N` > 0 prefills a KV span longer than N in
 chunks. `--kv_dtype int8` serves from int8 page pools (or an int8 ring);
 as in `repro`, `--kv_dtype bf16` leaves the paged pools in the param dtype
-and rounds the prefill's K/V through bf16. `--spec_k` > 1 is not ported yet
-and raises NotImplementedError naming ROADMAP.md.
+and rounds the prefill's K/V through bf16. `--spec_k K` > 1 turns on
+speculative decode with K rows a verify step (paged cache; not with int8
+pools). A MoE arch (`--arch qwen3-moe-30b-a3b`, `--arch mixtral-8x22b`) runs
+its reduced form's 4 experts, top 2.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
       --attn window:16 --prefill_chunk 16 --prompt_len 40 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
       --prompt_len 40 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --kv_dtype int8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+      --spec_k 4 --device cpu
 """
 from __future__ import annotations
 
@@ -62,7 +66,7 @@ def parser() -> argparse.ArgumentParser:
                     help="common prompt prefix length across requests "
                          "(0 = fully independent prompts)")
     ap.add_argument("--spec_k", type=int, default=0,
-                    help="speculative decode rows per step (<=1 = off; not ported yet)")
+                    help="speculative decode rows per step (<=1 = off)")
     ap.add_argument("--prefill_chunk", type=int, default=0,
                     help="chunked-prefill KV span in tokens (0 = full-width flash prefill)")
     ap.add_argument("--prefix_cap", type=int, default=0,

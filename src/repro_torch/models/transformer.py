@@ -1,6 +1,8 @@
 """The decoder stack of the serving path (the port of the serving parts of
-`repro/models/transformer.py`): decoders built of `attn` and `local`
-attention blocks and `rglru` recurrent blocks, with rotary positions.
+`repro/models/transformer.py`): decoders built of `attn`, `local` and
+`attn_moe` attention blocks and `rglru` recurrent blocks, with rotary
+positions. An `attn_moe` block's feed-forward half is the mixture of experts
+(`models/moe.py`), whose aux loss serving does not read.
 
 Parameters are stacked per layer as in `repro` (`params["blocks"][j]` holds
 pattern slot j of every super-block; `params["tail"]` the remainder layers
@@ -26,23 +28,26 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models.attention import AttnSpec, KVCache
 
-_NOT_PORTED = ("is not ported to repro_torch yet (the port runs decoders of attn, local and "
-               "rglru blocks with rotary positions; moe, ssd, enc-dec, M-RoPE and sinusoidal "
-               "positions are still to port); see ROADMAP.md queue 1")
+_NOT_PORTED = ("is not ported to repro_torch yet (the port runs decoders of attn, local, "
+               "attn_moe and rglru blocks with rotary positions; ssd, enc-dec, M-RoPE and "
+               "sinusoidal positions are still to port); see ROADMAP.md queue 1")
 
 
 def _check_supported(cfg) -> None:
     """Raise for an architecture the port's stack cannot run."""
-    kinds_ok = all(k in ("attn", "local", "rglru") for k in cfg.block_pattern)
+    kinds_ok = all(k in ("attn", "local", "attn_moe", "rglru") for k in cfg.block_pattern)
     if not kinds_ok or cfg.is_encoder_decoder or cfg.rope_kind != "rope":
         raise NotImplementedError(f"arch {cfg.name!r} (pattern {cfg.block_pattern}, rope "
                                   f"{cfg.rope_kind!r}, enc-dec {cfg.is_encoder_decoder}) "
                                   f"{_NOT_PORTED}")
     if "rglru" in cfg.block_pattern and cfg.rglru is None:
         raise ValueError(f"arch {cfg.name!r} has rglru blocks but no RGLRUConfig")
+    if "attn_moe" in cfg.block_pattern and cfg.moe is None:
+        raise ValueError(f"arch {cfg.name!r} has attn_moe blocks but no MoEConfig")
 
 
 # ----------------------------------------------------------------------------
@@ -57,7 +62,10 @@ def _init_block(create, cfg, kind: str, layers: int) -> dict:
     else:
         p["attn"] = attn_lib.init_attn(create, cfg, layers)
     p["norm2"] = L.init_norm(create, cfg, layers)
-    p["mlp"] = L.init_mlp(create, cfg, layers)
+    if kind == "attn_moe":
+        p["moe"] = moe_lib.init_moe(create, cfg, layers)
+    else:
+        p["mlp"] = L.init_mlp(create, cfg, layers)
     return p
 
 
@@ -100,7 +108,7 @@ def cache_capacity(cfg, kind: str, seq_len: int, full: bool = False) -> int:
     window = cfg.sliding_window
     if full:
         return seq_len
-    if kind == "local" or (kind == "attn" and cfg.attn_kind == "sliding"):
+    if kind == "local" or (kind in ("attn", "attn_moe") and cfg.attn_kind == "sliding"):
         return min(window, seq_len) if window else seq_len
     return seq_len
 
@@ -174,8 +182,8 @@ def _rotate(cfg, x, pos):
 def _attend(cfg, kind: str, p: dict, x: torch.Tensor, *, mode: str, cache: dict,
             pos: torch.Tensor, backend, pages, share_pages: int, kv_len: int,
             prefill_chunk: int):
-    """The attention half of an `attn` / `local` block -> (o [B,S,Hq,D], the
-    block's new cache). Caches are written in place."""
+    """The attention half of an `attn` / `local` / `attn_moe` block -> (o
+    [B,S,Hq,D], the block's new cache). Caches are written in place."""
     spec = _attn_spec(cfg, kind)
     q, k, v = attn_lib.qkv_proj(cfg, p["attn"], x)
     if mode == "tail":
@@ -205,10 +213,10 @@ def _attend(cfg, kind: str, p: dict, x: torch.Tensor, *, mode: str, cache: dict,
 def apply_block(cfg, kind: str, p: dict, h: torch.Tensor, *, mode: str, cache: dict,
                 pos: torch.Tensor, backend, pages: Optional[torch.Tensor] = None,
                 share_pages: int = 0, kv_len: int = 0, prefill_chunk: int = 0):
-    """One block of kind `attn`, `local` or `rglru` in mode prefill, tail or
-    decode -> (h, the block's new cache). `pos` is [S] absolute positions
-    (prefill, tail), the per-slot [B] positions (paged decode) or the ring's
-    0-dim position (ring decode). An RG-LRU prefill starts from zero state,
+    """One block of kind `attn`, `local`, `attn_moe` or `rglru` in mode
+    prefill, tail or decode -> (h, the block's new cache). `pos` is [S]
+    absolute positions (prefill, tail), the per-slot [B] positions (paged
+    decode) or the ring's 0-dim position (ring decode). An RG-LRU prefill starts from zero state,
     as `repro`'s does; its state is written into the cache in place."""
     x = L.apply_norm(cfg, p["norm1"], h)
     if kind == "rglru":
@@ -228,7 +236,11 @@ def apply_block(cfg, kind: str, p: dict, h: torch.Tensor, *, mode: str, cache: d
         y = attn_lib.out_proj(p["attn"], y)
     h = h + y
     x = L.apply_norm(cfg, p["norm2"], h)
-    return h + L.apply_mlp(cfg, p["mlp"], x), new_cache
+    if kind == "attn_moe":  # over the widths repro runs it over: they set the capacity
+        y, _aux = moe_lib.apply_moe(cfg, p["moe"], x)
+    else:
+        y = L.apply_mlp(cfg, p["mlp"], x)
+    return h + y, new_cache
 
 
 class StackOut(NamedTuple):

@@ -58,8 +58,10 @@ prefix K/V where the solo run saw full precision) and `spec_k > 1` is
 refused. On the ring the same setting gives an int8 ring with per-token
 scales.
 
-Not ported yet, and raising `NotImplementedError` that names ROADMAP.md:
-speculative decode (`spec_k > 1`).
+Speculative decode (`ServeConfig.spec_k > 1`, paged only) verifies a slot's
+current token and spec_k - 1 prompt-lookup drafts in one paged decode call,
+the rows as the batch, and keeps the longest draft prefix that matches the
+verified argmaxes; rollback is the slot's position alone.
 """
 from __future__ import annotations
 
@@ -74,8 +76,6 @@ from repro_torch.core.backend import get_backend
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as T
-
-_SEE = "is not ported to repro_torch yet; see ROADMAP.md queue 1, item 9"
 
 
 def _leaves(tree):
@@ -216,8 +216,6 @@ class ServeEngine:
             self._pool = None  # (cache, free list) kept across run() waves
         if cfg.spec_k > 1 and self.cache_mode != "paged":
             raise ValueError("spec_k needs the paged cache discipline")
-        if cfg.spec_k > 1:
-            raise NotImplementedError(f"speculative decode (spec_k > 1) {_SEE}")
 
     def run(self, requests: list) -> list:
         """Serve `requests` to completion; returns them in finish order."""
@@ -229,6 +227,8 @@ class ServeEngine:
             else:
                 pending.append(r)
         if self.cache_mode == "paged":
+            if self.config.spec_k > 1:
+                return self._run_paged_spec(pending, done)
             return self._run_paged(pending, done)
         return self._run_ring(pending, done)
 
@@ -484,12 +484,100 @@ class ServeEngine:
             if freed or retired:
                 cache, nxt = self._admit_idle_slots(pending, done, cache, nxt, active,
                                                     remaining, free, slot_pages)
+        return self._end_paged_run(pending, done, cache, free)
+
+    def _end_paged_run(self, pending: list, done: list, cache, free: list) -> list:
+        """Fail loud on requests no slot could ever hold (a hand-shrunk pool),
+        keep the pool for later waves when prefixes are shared, and return
+        the requests in finish order."""
         if pending:
             raise RuntimeError(f"{len(pending)} requests unadmittable with "
                                f"{len(free)}/{self.num_pages - 1} pages free")
         if self.config.share_prefix:
             self._pool = (cache, free)  # keep the pinned prefix pages for later waves
         return done
+
+    # ------------------------------------------------------ speculative path
+    def _draft(self, r, n: int) -> np.ndarray:
+        """Prompt-lookup draft: the continuation of the most recent earlier
+        occurrence of the request's last token in its own context (prompt +
+        generated so far), zero-padded to exactly `n` proposals."""
+        out = np.zeros((n,), np.int32)
+        if n == 0:
+            return out
+        ctx = np.concatenate([np.asarray(r.prompt, np.int32), np.asarray(r.out, np.int32)])
+        hits = np.nonzero(ctx[:-1] == ctx[-1])[0]
+        if hits.size:
+            cont = ctx[int(hits[-1]) + 1:int(hits[-1]) + 1 + n]
+            out[:cont.size] = cont
+        return out
+
+    def _run_paged_spec(self, pending: list, done: list) -> list:
+        """Speculative decode, spec_k rows a step, one slot at a time: the
+        slot's current token and k-1 drafted ones are verified in one paged
+        decode call with the rows as the batch. Every row carries the slot's
+        table row at its own position, and `paged_update_decode` writes every
+        row's K/V before `paged_decode_attend` reads the pools, so the rows'
+        causal masks make the call an exact multi-token decode. Acceptance
+        keeps the longest draft prefix matching the verified argmaxes (row 0
+        is the plain step: at least one token a step); rollback is the
+        slot's position, behind which the rejected rows' writes stay masked
+        until overwritten. Rows past the slot's remaining budget are parked
+        on the trash row (pages 0, position 0, token 0)."""
+        k = self.config.spec_k
+        cache, nxt, free, slot_pages, active, remaining = self._paged_init(pending, done)
+        while any(r is not None for r in active):
+            for i in range(self.B):
+                r = active[i]
+                if r is None:
+                    continue
+                k_eff = min(k, remaining[i])
+                p = len(r.prompt) + len(r.out) - 1  # the next write position
+                draft = self._draft(r, k - 1)
+                d = np.zeros((k, 1), np.int32)
+                d[0, 0] = r.out[-1]  # the last emitted token is the next input
+                d[1:k_eff, 0] = draft[:k_eff - 1]
+                pos_k = np.zeros(k, np.int32)
+                pos_k[:k_eff] = p + np.arange(k_eff)
+                pages_k = np.zeros((k, self.table_pages), np.int32)
+                pages_k[:k_eff] = self._slot_rows[i]
+                cache = self._cow_guard(cache, free, slot_pages, i, p, k_eff)
+                self.stats["decode_rounds"] += 1
+                self.stats["slot_rounds"] += 1
+                # the rows' cache shares the engine's pool tensors, which the
+                # call writes in place; its returned pos is discarded. Parked
+                # rows all write cell (trash page 0, offset 0): duplicate
+                # indices of one index_put, whose winner is unspecified, on a
+                # page nothing reads (repro writes it too)
+                sub = {"blocks": cache["blocks"], "tail": cache["tail"],
+                       "pos": self._rows(pos_k), "pages": self._rows(pages_k),
+                       "refcount": cache["refcount"]}
+                logits, _ = self.model.decode_step(self.params, sub, {"tokens": self._rows(d)},
+                                                   backend=self.backend)
+                g = greedy(logits)[:, 0].cpu().numpy()
+                a = 0  # accepted proposals: the longest exact-match draft prefix
+                while a + 1 < k_eff and d[a + 1, 0] == g[a]:
+                    a += 1
+                self.stats["spec_proposed"] += k_eff - 1
+                self.stats["spec_accepted"] += a
+                r.out.extend(int(g[t]) for t in range(a + 1))
+                if self.config.trace_logits:
+                    log_np = logits.float().cpu().numpy()
+                    for t in range(a + 1):
+                        r.logits.append(log_np[t, 0].copy())
+                remaining[i] -= a + 1
+                cache["pos"][i] = p + a + 1  # the rollback: rows past a stay masked
+                cache, retired = self._retire_window_pages(cache, free, slot_pages, active)
+                if remaining[i] == 0:
+                    r.done = True
+                    done.append(r)
+                    active[i] = None
+                    cache = self._release_slot(cache, free, slot_pages, i)
+                    retired = True
+                if retired:
+                    cache, nxt = self._admit_idle_slots(pending, done, cache, nxt, active,
+                                                        remaining, free, slot_pages)
+        return self._end_paged_run(pending, done, cache, free)
 
     def _release_slot(self, cache, free: list, slot_pages: list, slot: int):
         """Drop a finished slot's page references and park the slot (all-trash

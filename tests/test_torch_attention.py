@@ -217,7 +217,7 @@ def _check_configs():
                                                                                       49_152)
     assert reduced(cfg).sliding_window == 32
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("mixtral-8x22b")
+        get_config("mamba2-370m")
 
 
 # ----------------------------------------------------------------------------

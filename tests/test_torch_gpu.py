@@ -421,6 +421,7 @@ FLASH_CASES = [
     (1, 130, 130, 4, 2, 64, -20, 5, 0.0, torch.bfloat16),
     (1, 300, 300, 24, 2, 128, 0, 0, 20.0, torch.float32),
     (1, 256, 256, 16, 16, 128, 0, 0, 0.0, torch.bfloat16),
+    (1, 256, 256, 32, 4, 128, 0, 0, 0.0, torch.float32),  # a qwen3-moe-30b-a3b prefill: G 8
     (2, 90, 200, 4, 1, 256, 110, 0, 0.0, torch.bfloat16),
     (1, 200, 200, 4, 2, 256, 0, 100, 30.0, torch.float32),
     (1, 50, 63, 2, 1, 18, 0, 0, 0.0, torch.float32),
@@ -479,8 +480,9 @@ def _flash_case(dev, B, Sq, Skv, Hq, Hkv, D, off, window, softcap, dtype):
     assert torch.equal(blind, torch.zeros_like(blind))
 
 
-# B, Hkv, G, D, P, table pages, pool pages, window, softcap, dtype[, slots]
-# (slots: `_paged_inputs`' positions a slot)
+# B, Hkv, G, D, P, table pages, pool pages, window, softcap, dtype[, slots[,
+# one_row]] (slots: `_paged_inputs`' positions a slot; one_row: every slot
+# on the first one's table row, a spec verify's rows)
 PAGED_CASES = [
     (4, 16, 1, 128, 8, 32, 129, 0, 0.0, torch.float32),  # olmo-1b decode, batch 4
     (3, 2, 4, 64, 8, 6, 20, 5, 0.0, torch.float32),
@@ -495,16 +497,22 @@ PAGED_CASES = [
     (3, 2, 3, 34, 8, 6, 40, 12, 0.0, torch.float32),
     (3, 2, 2, 34, 8, 6, 40, 0, 10.0, torch.bfloat16),
     (2, 4, 4, 128, 16, 10, 41, 40, 0.0, torch.float32, (150, 37)),  # P 16
+    # qwen3-moe-30b-a3b's decode at batch 4 (G 8), and its k = 4 verify:
+    # four rows of one slot at consecutive positions
+    (4, 4, 8, 128, 8, 32, 129, 0, 0.0, torch.float32, (217, 100, 37, -1)),
+    (4, 4, 8, 128, 8, 32, 129, 0, 0.0, torch.float32, (100, 101, 102, 103), True),
 ]
 
 
-def _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype, seed=0, slots=None, window=0):
+def _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype, seed=0, slots=None, window=0,
+                  one_row=False):
     """Pools, a block table and positions: slot 0 at a page boundary, slot 1
     with an allocated page past its position, the last slot parked (all
     trash, position 0); pages drawn without repeats from 1..n_phys-1. With
     `slots` (a position a slot, -1 parked) instead: every other slot holds
-    all n_table pages, and with a window the pages behind it are retired to
-    the trash page but for the last two."""
+    all n_table pages (with `one_row`, the first slot's), and with a window
+    the pages behind it are retired to the trash page but for the last
+    two."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, 1, Hkv * G, D, generator=g, device=dev).to(dtype)
     k_pages = torch.randn(n_phys, P, Hkv, D, generator=g, device=dev).to(dtype)
@@ -515,7 +523,8 @@ def _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype, seed=0, slots=No
     if slots is not None:
         for b, p in enumerate(slots):
             if p >= 0:
-                table[b] = ids[b * n_table:(b + 1) * n_table]
+                row = 0 if one_row else b
+                table[b] = ids[row * n_table:(row + 1) * n_table]
                 pos[b] = p
                 if window:
                     table[b, :max(0, (p - window + 1) // P - 2)] = 0
@@ -564,11 +573,12 @@ def _unread(call, out, pools, table, dead):
     assert all(torch.equal(a, b) for a, b in zip(out, call()))
 
 
-def _paged_case(dev, B, Hkv, G, D, P, n_table, n_phys, window, softcap, dtype, slots=None):
+def _paged_case(dev, B, Hkv, G, D, P, n_table, n_phys, window, softcap, dtype, slots=None,
+                one_row=False):
     from repro_torch.kernels import ops, paged_attention
 
     q, k_pages, v_pages, table, pos = _paged_inputs(dev, B, Hkv, G, D, P, n_table, n_phys, dtype,
-                                                    slots=slots, window=window)
+                                                    slots=slots, window=window, one_row=one_row)
     qg = q.reshape(B, Hkv, G, D)
     kw = dict(window=window, softcap=softcap)
     call = lambda: paged_attention.paged_attention_partials(  # noqa: E731
@@ -652,6 +662,54 @@ def test_serve_engine_cuda_matches_reference_on_the_card():
         assert np.abs(la - lb).max() <= 1e-4 * np.abs(lb).max() + 1e-5
     assert launches["flash_attention"] == cfg.n_layers * len(prompts)
     assert launches["paged_attention"] == cfg.n_layers * stats["decode_rounds"]
+
+
+def test_moe_and_spec_engines_cuda_match_reference_on_the_card():
+    """A MoE decoder (reduced qwen3-moe-30b-a3b widened to 4 layers, d_model
+    256, 16 query heads over 2 kv heads of 64: G 8; 8 experts, top 2) in
+    ServeEngine on the kernels against ServeEngine on the reference backend,
+    plain and with spec_k 4: the same finish order, tokens and counters,
+    logits within 1e-4 * max|logit| + 1e-5, spec drafts proposed, and the
+    kernels launched once a layer per prefill and per decode round (a spec
+    verify is one decode call)."""
+    from repro_torch.configs import MoEConfig, get_config, reduced
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServeConfig, ServeEngine
+
+    dev = _card()
+    cfg = reduced(get_config("qwen3-moe-30b-a3b"), n_layers=4, d_model=256, n_heads=16,
+                  n_kv_heads=2, head_dim=64, vocab_size=512,
+                  moe=MoEConfig(n_experts=8, top_k=2, d_ff=64, parallelism="ep"))
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    r = np.random.default_rng(1)
+    shared = r.integers(0, 512, 16)
+    prompts = []
+    for i, n in enumerate((9, 30, 70, 40, 30, 60)):
+        p = r.integers(0, 512, n)
+        if i % 2 == 1:
+            p[:16] = shared
+        prompts.append(p.astype(np.int32))
+    for spec_k in (0, 4):
+        runs = {}
+        for name in ("cuda", "reference"):
+            reset_launches()
+            eng = ServeEngine(model, params, backend=name, device=dev,
+                              config=ServeConfig(batch_size=3, max_len=160, trace_logits=True,
+                                                 spec_k=spec_k))
+            done = eng.run([Request(uid=i, prompt=p, max_new=6) for i, p in enumerate(prompts)])
+            runs[name] = (done, dict(eng.stats), dict(LAUNCHES))
+        (done, stats, launches), (done_ref, stats_ref, _) = runs["cuda"], runs["reference"]
+        assert [q.uid for q in done] == [q.uid for q in done_ref]
+        assert [q.out for q in done] == [q.out for q in done_ref]
+        assert stats == stats_ref and stats["prefix_hits"] >= 1
+        assert (stats["spec_proposed"] > 0) == (spec_k > 0)
+        for a, b in zip(done, done_ref):
+            la, lb = np.stack(a.logits), np.stack(b.logits)
+            assert np.abs(la - lb).max() <= 1e-4 * np.abs(lb).max() + 1e-5
+        assert launches["flash_attention"] == cfg.n_layers * len(prompts)
+        assert launches["paged_attention"] == cfg.n_layers * stats["decode_rounds"]
 
 
 # B, Sq, Skv, Hq, Hkv, D, first q position, window, softcap, dtype, chunk

@@ -29,7 +29,7 @@ from repro.core.backend import get_backend as j_get_backend
 from repro.models import Model as JModel
 from repro_torch import convert
 from repro_torch.configs import get_config, reduced
-from repro_torch.configs.base import ModelConfig, RGLRUConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig, RGLRUConfig
 from repro_torch.launch import serve
 from repro_torch.models import Model
 from repro_torch.serving import engine
@@ -215,11 +215,7 @@ def _tiny_model(**overrides):
 
 
 NOT_PORTED = {
-    "spec_k": lambda m, p: ServeEngine(m, p, device="cpu", config=ServeConfig(spec_k=2)),
     "arch": lambda m, p: get_config("mamba2-370m"),
-    "model_init_of_a_moe": lambda m, p: Model(
-        ModelConfig("moe", "moe", 2, 64, 4, 4, 128, 256, block_pattern=("attn_moe",)),
-        device="cpu").init(0),
 }
 
 
@@ -229,6 +225,14 @@ def _recurrent_engine(m, p, **config):
     rec = Model(dataclasses.replace(m.cfg, block_pattern=("rglru", "attn"), n_layers=2,
                                     rglru=RGLRUConfig(lru_width=64)), device="cpu")
     return ServeEngine(rec, rec.init(0), device="cpu", config=ServeConfig(**config))
+
+
+def _moe_engine(m, p):
+    """An engine on a two-layer attn_moe decoder (4 experts, top 2) with its
+    own parameters."""
+    moe = Model(ModelConfig("moe", "moe", 2, 64, 4, 4, 128, 256, block_pattern=("attn_moe",),
+                            moe=MoEConfig(n_experts=4, top_k=2, d_ff=32)), device="cpu")
+    return ServeEngine(moe, moe.init(0), device="cpu")
 
 
 def _int8(m, p, **config):
@@ -250,6 +254,8 @@ PORTED = {
     "ring_prefill_of_a_windowed_arch": lambda m, p: ServeEngine(
         Model(dataclasses.replace(m.cfg, attn_kind="sliding", sliding_window=16),
               device="cpu"), p, device="cpu", config=ServeConfig(cache="ring")),
+    "spec_k": lambda m, p: ServeEngine(m, p, device="cpu", config=ServeConfig(spec_k=2)),
+    "model_init_of_a_moe": _moe_engine,
 }
 
 
